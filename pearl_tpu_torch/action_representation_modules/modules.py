@@ -1,0 +1,64 @@
+"""Action representation modules (port of
+`pearl_tpu/action_representation_modules/modules.py`: identity and one-hot).
+
+Both are fixed, parameterless transforms of the raw stored action vectors
+(for gym-style discrete spaces, length-1 index vectors).
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+
+class ActionRepresentationModule(abc.ABC):
+    @abc.abstractmethod
+    def apply(self, action: torch.Tensor) -> torch.Tensor:
+        """(..., a) -> (..., r)."""
+
+    @abc.abstractmethod
+    def representation_dim(self, action_dim: int, max_number_actions: int) -> int:
+        ...
+
+    def resolve(self, action_dim: int, max_number_actions: int) -> "ActionRepresentationModule":
+        """A copy with any space-dependent fields filled in."""
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityActionRepresentation(ActionRepresentationModule):
+    def apply(self, action):
+        return action
+
+    def representation_dim(self, action_dim, max_number_actions):
+        return action_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class OneHotActionRepresentation(ActionRepresentationModule):
+    """One-hot of the action index, as float32."""
+
+    max_number_actions: int = 0  # resolved by the learner if left 0
+
+    def resolve(self, action_dim, max_number_actions):
+        if action_dim != 1:
+            raise ValueError(
+                "OneHotActionRepresentation one-hots the stored action value, "
+                "which is only meaningful for index-valued action spaces "
+                f"(action_dim=1); this space has action_dim={action_dim}. Use "
+                "IdentityActionRepresentation instead."
+            )
+        if self.max_number_actions:
+            return self
+        return dataclasses.replace(self, max_number_actions=max_number_actions)
+
+    def apply(self, action):
+        idx = action[..., 0].to(torch.int64)
+        return F.one_hot(idx, self.max_number_actions).to(torch.float32)
+
+    def representation_dim(self, action_dim, max_number_actions):
+        del action_dim
+        return self.max_number_actions or max_number_actions

@@ -1,0 +1,240 @@
+"""PearlAgent: policy learner + safety module + history summarization +
+replay buffer (port of `pearl_tpu/agent/pearl_agent.py`, the non-frame path).
+
+Every function is batched over `num_envs` envs on one device, and
+`AgentState` is one dataclass carrying every module's state. `observe` pushes
+history summaries; a done env's transition keeps the summarizer's state after
+the terminal observation as `next_state`, and the post-reset observation only
+seeds that env's next window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from pearl_tpu_torch.api.types import ActionResult
+from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
+from pearl_tpu_torch.replay_buffers.replay_buffer import BasicReplayBuffer
+from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
+from pearl_tpu_torch.safety_modules import IdentitySafetyModule, SafetyModule
+from pearl_tpu_torch.utils.device import DeviceLike, resolve_device
+from pearl_tpu_torch.utils.pytree import tree_select
+
+
+@dataclasses.dataclass
+class AgentState:
+    learner: Any
+    safety: Any
+    replay: Any
+    history_carry: Any
+    available_mask: Optional[torch.Tensor]  # (B, A) current availability
+    last_action: ActionChoice
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PearlAgent:
+    policy_learner: PolicyLearner
+    replay_buffer: BasicReplayBuffer = dataclasses.field(
+        default_factory=lambda: BasicReplayBuffer(capacity=10_000)
+    )
+    safety_module: SafetyModule = dataclasses.field(default_factory=IdentitySafetyModule)
+
+    def __post_init__(self):
+        if self.policy_learner.is_distributional:
+            raise NotImplementedError(
+                "distributional learners are not ported yet (ROADMAP Queue A, item 14)"
+            )
+        if getattr(self.policy_learner.history_summarizer, "is_frame_ring", False):
+            raise NotImplementedError(
+                "the frame-ring visual path is not ported yet (ROADMAP Queue A, "
+                "item 11: the visual slice)"
+            )
+
+    # ------------------------------------------------------------------ setup
+    def for_env(self, env) -> "PearlAgent":
+        """Bind the learner to the env's action space."""
+        return dataclasses.replace(
+            self, policy_learner=self.policy_learner.bind(env.action_space)
+        )
+
+    @property
+    def _summ(self):
+        return self.policy_learner.history_summarizer
+
+    def _rep_dims(self, observation_dim: int):
+        learner = self.policy_learner
+        space = learner.action_space
+        num_actions = getattr(space, "n", 0)
+        rep = learner.resolved_action_representation(space)
+        rep_dim = rep.representation_dim(space.action_dim, num_actions)
+        return rep, rep_dim, num_actions
+
+    def fresh_per_env_state(
+        self, observation_dim: int, num_envs: int, initial_obs: torch.Tensor, device
+    ) -> dict:
+        """The per-env leaves of `AgentState` for a fresh batch of envs."""
+        _, rep_dim, num_actions = self._rep_dims(observation_dim)
+        carry = self._summ.init_carry(num_envs, observation_dim, rep_dim, device)
+        carry = self._summ.observe(carry, initial_obs, None)
+        mask = (
+            torch.ones((num_envs, num_actions), dtype=torch.bool, device=device)
+            if num_actions
+            else None
+        )
+        action_dim = self.policy_learner.action_space.action_dim
+        last = ActionChoice(
+            action=torch.zeros((num_envs, action_dim), device=device),
+            index=torch.zeros((num_envs,), dtype=torch.int32, device=device),
+        )
+        return {"history_carry": carry, "available_mask": mask, "last_action": last}
+
+    def init(
+        self,
+        seed: int,
+        observation_dim: int,
+        num_envs: int,
+        initial_obs: torch.Tensor,
+        device: DeviceLike = None,
+    ) -> AgentState:
+        """Fresh state on `device` (the card unless `device="cpu"`); the
+        weights are drawn from a CPU generator seeded with `seed`."""
+        device = resolve_device(device)
+        learner = self.policy_learner
+        space = learner.action_space
+        _, rep_dim, _ = self._rep_dims(observation_dim)
+        gen = torch.Generator().manual_seed(int(seed))
+        learner_state = learner.init(gen, observation_dim, space, num_envs, device)
+        safety_state = self.safety_module.init(gen, observation_dim, space, num_envs)
+
+        stored_dim = self._summ.stored_dim(observation_dim, rep_dim)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        example = TransitionBatch(
+            state=zeros(1, stored_dim),
+            action=zeros(1, space.action_dim),
+            reward=zeros(1),
+            next_state=zeros(1, stored_dim),
+            terminated=zeros(1, dtype=torch.bool),
+            truncated=zeros(1, dtype=torch.bool),
+            action_index=zeros(1, dtype=torch.int32),
+        )
+        return AgentState(
+            learner=learner_state,
+            safety=safety_state,
+            replay=self.replay_buffer.init(example),
+            **self.fresh_per_env_state(
+                observation_dim, num_envs, initial_obs.to(device), device
+            ),
+        )
+
+    # ------------------------------------------------------------------- act
+    def subjective_state(self, astate: AgentState) -> torch.Tensor:
+        stored = self._summ.stored(astate.history_carry)
+        return self._summ.forward(astate.learner.summarizer_params, stored)
+
+    def act(
+        self, astate: AgentState, generator: Optional[torch.Generator], exploit: bool = False
+    ) -> Tuple[AgentState, ActionChoice]:
+        subjective = self.subjective_state(astate)
+        mask = self.safety_module.filter_action(astate.safety, subjective, astate.available_mask)
+        learner_state, choice = self.policy_learner.act(
+            astate.learner, subjective, mask, generator, exploit
+        )
+        return dataclasses.replace(astate, learner=learner_state, last_action=choice), choice
+
+    # --------------------------------------------------------------- observe
+    def observe(
+        self,
+        astate: AgentState,
+        result: ActionResult,
+        next_obs: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> AgentState:
+        """Ingest a batched env step: update history, push the transition,
+        reset per-env state where episodes ended."""
+        astate, transition = self.observe_deferred(astate, result, next_obs, generator)
+        replay_state = self.replay_buffer.push(astate.replay, transition)
+        return dataclasses.replace(astate, replay=replay_state)
+
+    def observe_deferred(
+        self,
+        astate: AgentState,
+        result: ActionResult,
+        next_obs: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[AgentState, TransitionBatch]:
+        """`observe` without the replay push: returns (astate', transition)."""
+        summ = self._summ
+        learner = self.policy_learner
+        rep = learner.resolved_action_representation(learner.action_space)
+
+        prev_stored = summ.stored(astate.history_carry)
+        act_rep = rep.apply(astate.last_action.action)
+        carry_after = summ.observe(astate.history_carry, result.observation, act_rep)
+        next_stored = summ.stored(carry_after)
+        done = result.done
+
+        next_mask = result.available_actions_mask
+        transition = TransitionBatch(
+            state=prev_stored,
+            action=astate.last_action.action,
+            reward=result.reward,
+            next_state=next_stored,
+            terminated=result.terminated,
+            truncated=result.truncated,
+            action_index=astate.last_action.index,
+        )
+
+        # Asynchronous per-env episode resets: zero the window and seed it
+        # with the post-reset observation.
+        zeroed = summ.reset_envs(carry_after, done)
+        fresh = summ.observe(zeroed, next_obs, None)
+        carry_next = tree_select(done, fresh, carry_after)
+
+        mask_next = astate.available_mask
+        if mask_next is not None:
+            full = torch.ones_like(mask_next)
+            # where(done, full, next_mask or full): all-available when the env
+            # reports no mask.
+            mask_next = full if next_mask is None else torch.where(done[:, None], full, next_mask)
+
+        learner_state = learner.episode_reset(astate.learner, done, generator)
+        astate = dataclasses.replace(
+            astate,
+            learner=learner_state,
+            history_carry=carry_next,
+            available_mask=mask_next,
+        )
+        return astate, transition
+
+    # ----------------------------------------------------------------- learn
+    def learn(
+        self,
+        astate: AgentState,
+        generator: Optional[torch.Generator],
+        indices: Optional[torch.Tensor] = None,
+    ) -> Tuple[AgentState, dict]:
+        """`training_rounds` learn steps from replay; `indices`
+        (training_rounds, batch_size) replaces the sampled rows."""
+        learner_state, replay_state, metrics = self.policy_learner.learn(
+            astate.learner, self.replay_buffer, astate.replay, generator, indices=indices
+        )
+        if self.policy_learner.on_policy:
+            replay_state = self.replay_buffer.clear(replay_state)
+        return dataclasses.replace(astate, learner=learner_state, replay=replay_state), metrics
+
+    def learn_batch(self, astate: AgentState, batch: TransitionBatch):
+        """Offline path: learner update then safety update on one batch."""
+        learner_state, metrics = self.policy_learner.learn_batch(astate.learner, batch)
+        safety_state, s_metrics = self.safety_module.learn_batch(
+            astate.safety, batch, learner=self.policy_learner, learner_state=learner_state
+        )
+        return dataclasses.replace(astate, learner=learner_state, safety=safety_state), {
+            **metrics,
+            **s_metrics,
+        }

@@ -1,0 +1,4 @@
+from pearl_tpu_torch.envs.cartpole import CartPole, CartPoleState
+from pearl_tpu_torch.envs.vector import VectorEnv
+
+__all__ = ["CartPole", "CartPoleState", "VectorEnv"]

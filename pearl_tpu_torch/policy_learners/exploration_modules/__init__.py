@@ -1,0 +1,15 @@
+from pearl_tpu_torch.policy_learners.exploration_modules.common import (
+    EGreedyExploration,
+    ExplorationModule,
+    NoExploration,
+    masked_argmax,
+    uniform_index,
+)
+
+__all__ = [
+    "EGreedyExploration",
+    "ExplorationModule",
+    "NoExploration",
+    "masked_argmax",
+    "uniform_index",
+]

@@ -1,0 +1,99 @@
+"""Exploration modules (port of
+`pearl_tpu/policy_learners/exploration_modules/common.py`: `masked_argmax`,
+`NoExploration` and `EGreedyExploration`).
+
+Protocol, batched over B envs:
+
+    init(num_envs) -> ExploreState
+    act(state, scores, exploit_index, mask, generator) -> (state', index (B,))
+    reset(state, done_mask, generator) -> state'
+
+The ε-greedy step counter is a host integer (it grows by B per act, a
+number the host knows), so the schedule costs no device sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+class ExplorationModule:
+    def init(self, num_envs: int):
+        return ()
+
+    def act(self, state, scores, exploit_index, mask, generator):
+        raise NotImplementedError
+
+    def reset(self, state, done_mask, generator):
+        return state
+
+
+def masked_argmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Row-wise argmax treating unavailable actions as -inf; the first index
+    wins a tie."""
+    if mask is not None:
+        scores = torch.where(mask, scores, float("-inf"))
+    return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+def uniform_index(noise: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """A uniformly drawn available action per row from iid uniform `noise`
+    (B, A): the argmax of the noise over the available actions. This is the
+    reference's `categorical` over equal logits (a Gumbel argmax; the Gumbel
+    transform is monotone, so the argmax of the uniforms is the same draw)."""
+    if mask is not None:
+        noise = torch.where(mask, noise, -1.0)
+    return torch.argmax(noise, dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoExploration(ExplorationModule):
+    """Greedy with respect to the scores."""
+
+    def act(self, state, scores, exploit_index, mask, generator):
+        return state, exploit_index
+
+
+@dataclasses.dataclass(frozen=True)
+class EGreedyExploration(ExplorationModule):
+    """ε-greedy with an optional linear schedule: ε goes from `start_epsilon`
+    to `end_epsilon` over `warmup_steps` env steps."""
+
+    epsilon: float = 0.05
+    start_epsilon: Optional[float] = None
+    end_epsilon: Optional[float] = None
+    warmup_steps: Optional[int] = None
+
+    def init(self, num_envs: int) -> int:
+        return 0  # env steps seen
+
+    def current_epsilon(self, step: int) -> float:
+        if self.start_epsilon is None or self.end_epsilon is None or not self.warmup_steps:
+            return self.epsilon
+        frac = min(max(step / self.warmup_steps, 0.0), 1.0)
+        return self.start_epsilon + frac * (self.end_epsilon - self.start_epsilon)
+
+    def act(
+        self,
+        state: int,
+        scores: torch.Tensor,
+        exploit_index: torch.Tensor,
+        mask: Optional[torch.Tensor],
+        generator: Optional[torch.Generator],
+        draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ):
+        """`draws` = (explore uniforms (B,), random indices (B,)) replaces
+        the generator's draws — the tests hand both packages the same ones."""
+        B, A = scores.shape
+        if draws is None:
+            u = torch.rand((B, 1 + A), generator=generator, device=scores.device)
+            draws = (u[:, 0], uniform_index(u[:, 1:], mask))
+        explore_u, random_index = draws
+        # A Python float compares in the tensor's float32, as the reference's
+        # f32 epsilon does, and needs no host-to-device copy.
+        eps = self.current_epsilon(state)
+        index = torch.where(explore_u < eps, random_index.to(torch.int32), exploit_index)
+        return state + B, index

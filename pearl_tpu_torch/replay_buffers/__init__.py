@@ -1,0 +1,4 @@
+from pearl_tpu_torch.replay_buffers.replay_buffer import BasicReplayBuffer, ReplayBufferState
+from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
+
+__all__ = ["BasicReplayBuffer", "ReplayBufferState", "TransitionBatch"]
