@@ -8,13 +8,20 @@ Phases, each printing its seconds:
   2. build: compiles every kernel of the port from `pearl_tpu_torch/csrc`
      (one nvcc per source, all at once);
   3. kernels: holds each kernel against its plain PyTorch version on the card
-     at the shapes the main path gives it, forward and gradients, and times
-     kernel and plain version with CUDA events;
+     at the shapes the main paths give it (and at ragged ones), and times
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call, with CUDA events;
   4. runner: drives `make_compiled_runner` at the full width of the DQN
      CartPole workload (131072 envs) and checks that every Q evaluation went
      through the kernel;
-  5. learning: `online_learning` must reach CartPole return 500.
-Then one JSON line per kernel set, the card line, and the final JSON line.
+  5. learning: `online_learning` must reach CartPole return 500;
+  6. visual runner: drives `make_compiled_runner` at the full width of the
+     CNN-DQN workload (1024 envs, 84x84 frames, a window of 4, bfloat16 ring
+     and replay) and checks the exact launch counts of the ring and fence
+     kernels, the ring and replay bookkeeping and the Q values; then the
+     same composition, at the same width, on the env's default 4-channel
+     frames (a 231 MB ring), the path of `masked_scale_fence`.
+Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
 
@@ -50,10 +57,13 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def device_ms(fn, launches=25, sleep_cycles=40_000_000):
+def device_ms(fn, launches=25, sleep_cycles=40_000_000, flush=None):
     """Median device time of one call of `fn`, in ms. A long sleep kernel is
     queued first so that every timed call is enqueued before the card
-    reaches it: the events then time the card, not the host."""
+    reaches it: the events then time the card, not the host. With `flush`, a
+    buffer larger than the L2 cache, the buffer is rewritten before every
+    timed call, so that the call finds its operands in device memory as it
+    does on the main path."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -61,6 +71,8 @@ def device_ms(fn, launches=25, sleep_cycles=40_000_000):
               for _ in range(launches)]
     torch.cuda._sleep(sleep_cycles)
     for start, end in events:
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -259,6 +271,372 @@ def run_learning(card):
     assert fused_mlp.launches > 0
 
 
+# The visual workload's shapes: 1024 envs, a window of 4 frames of 84 x 84.
+VIS_B, VIS_T, VIS_H, VIS_W = 1_024, 4, 84, 84
+VIS_F = VIS_H * VIS_W
+VIS_LEARN_B = 512
+VIS_C = 4  # channels per frame on the 4-channel path (the env's default)
+# Ragged shapes: rows of 301 elements are 602 bytes in bfloat16 (2-byte words
+# only) and 1204 in float32 (4-byte words); 300 gives 8-byte words in bfloat16.
+RAGGED = [(37, 3, 301), (37, 1, 300), (5, 4, 7), (1, 2, 1)]
+
+
+def bytes_bound_ms(nbytes):
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _frames(shape, dtype, gen):
+    return (torch.rand(shape, device="cuda", generator=gen) * 255.0).to(dtype)
+
+
+def check_visual_kernels(card):
+    """B2, B7, B3, B6a and B6b against their plain versions on the card:
+    bit-exact for the copies, exact for the fences (the same float32
+    expression and rounding), in float32 and bfloat16, at the shapes of the
+    1-channel and the 4-channel path and at ragged ones; then each timed at
+    the shape its path gives it."""
+    from pearl_tpu_torch.ops.layout_fence import (
+        copy_fence, copy_fence_reference, masked_scale_fence, masked_scale_fence4,
+        masked_scale_fence4_reference, masked_scale_fence_reference,
+    )
+    from pearl_tpu_torch.ops.ring_write import (
+        ring_write, ring_write_reference, ring_write_where, ring_write_where_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err = dict.fromkeys(
+        ("ring_write", "ring_write_where", "copy_fence", "masked_scale_fence",
+         "masked_scale_fence4"), 0.0)
+
+    def exact(name, got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype, (name, got.shape, want.shape)
+        diff = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+        err[name] = max(err[name], diff)
+        assert torch.equal(_bits(got), _bits(want)), f"{name}: differs, max abs {diff:.3e}"
+
+    # Both paths' rings (1- and 4-channel frames), then the ragged shapes.
+    shapes = [(VIS_B, VIS_T, VIS_F), (VIS_B, VIS_T, VIS_C * VIS_F)] + RAGGED
+    # The fences also see the learn batch's sampled windows.
+    learn_shapes = [(VIS_LEARN_B, VIS_T, VIS_F), (VIS_LEARN_B, VIS_T, VIS_C * VIS_F)]
+
+    def library_fence(ring, valid, div):
+        """One PyTorch call for the fences' function: the mask is 0 or 1, so
+        (x * m) * inv equals x * (m * inv) bit for bit, and the (B, T) scale
+        is prepared once outside the call. Used here only."""
+        inv = torch.tensor(1.0 / div, dtype=torch.float32).item()
+        scale = (valid.to(torch.float32) * inv)[..., None]
+        out = torch.empty_like(ring)
+        return (lambda: torch.mul(ring, scale, out=out)), out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, F in shapes + learn_shapes:
+            if (B, T, F) in learn_shapes:
+                cursors = ()  # the fences only
+            else:
+                cursors = range(T) if B != VIS_B else (0, T - 1)
+            for c in cursors:
+                ring = _frames((B, T, F), dtype, gen)
+                entry, reset = _frames((B, F), dtype, gen), _frames((B, F), dtype, gen)
+                done = torch.rand((B,), device="cuda", generator=gen) < 0.3
+                # B2: the written slab and the untouched T-1 slots alike.
+                got = ring_write(ring.clone(), entry, c)
+                exact("ring_write", got, ring_write_reference(ring.clone(), entry, c))
+                # B2 from a strided source (the rows of a wider matrix).
+                wide = _frames((B, 2 * F + 8), dtype, gen)
+                got = ring_write(ring.clone(), wide[:, 8 : 8 + F], c)
+                exact("ring_write", got, ring_write_reference(ring.clone(), wide[:, 8 : 8 + F], c))
+                # B7.
+                got = ring_write_where(ring.clone(), entry, reset, done, c)
+                exact("ring_write_where", got,
+                      ring_write_where_reference(ring.clone(), entry, reset, done, c))
+                # B3: the strided newest-frame view of the ring.
+                exact("copy_fence", copy_fence(ring[:, c]), copy_fence_reference(ring[:, c]))
+            ring = _frames((B, T, F), dtype, gen)
+            valid = torch.rand((B, T), device="cuda", generator=gen) < 0.7
+            for div in (255.0, 1.0):
+                exact("masked_scale_fence", masked_scale_fence(ring, valid, div),
+                      masked_scale_fence_reference(ring, valid, div))
+                H, W = (VIS_H, F // VIS_H) if F % VIS_F == 0 else (1, F)
+                got4 = masked_scale_fence4(ring, valid, H=H, W=W, div=div)
+                exact("masked_scale_fence4", got4,
+                      masked_scale_fence4_reference(ring, valid, H=H, W=W, div=div))
+                call, out = library_fence(ring, valid, div)
+                call()
+                exact("masked_scale_fence", out, masked_scale_fence(ring, valid, div))
+                exact("masked_scale_fence4", out.view(got4.shape), got4)
+        # copy_fence of another element size.
+        x = torch.randint(0, 255, (37, 2 * 301), device="cuda", generator=gen).to(torch.uint8)
+        assert torch.equal(copy_fence(x[:, 3:304]), x[:, 3:304])
+        torch.cuda.synchronize()
+        print(f"visual kernels {dtype}: B2, B7, B3 bit-exact at {len(shapes)} shapes, B6a, B6b "
+              f"exact at {len(shapes) + len(learn_shapes)} shapes (and equal to the one-call "
+              f"library form)", flush=True)
+
+    # Timing at the shapes of the main path, operands cold in the L2 cache.
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+    ring = _frames((VIS_B, VIS_T, VIS_F), bf16, gen)
+    valid = torch.rand((VIS_B, VIS_T), device="cuda", generator=gen) < 0.7
+    obs, reset = _frames((VIS_B, VIS_F), bf16, gen), _frames((VIS_B, VIS_F), bf16, gen)
+    done = torch.rand((VIS_B,), device="cuda", generator=gen) < 0.3
+    learn_ring = _frames((VIS_LEARN_B, VIS_T, VIS_F), torch.float32, gen)
+    learn_valid = torch.ones((VIS_LEARN_B, VIS_T), dtype=torch.bool, device="cuda")
+    # The 4-channel path's windows, the shapes `masked_scale_fence` is given.
+    ring_c = _frames((VIS_B, VIS_T, VIS_C * VIS_F), bf16, gen)
+    learn_ring_c = _frames((VIS_LEARN_B, VIS_T, VIS_C * VIS_F), torch.float32, gen)
+    c = 2
+    frame_bytes = VIS_B * VIS_F * 2
+
+    def ms(fn):
+        return device_ms(fn, flush=flush)
+
+    def fence_times(kernel, plain, ring, valid):
+        return dict(
+            ms=ms(kernel), plain_ms=ms(plain),
+            library_ms=ms(library_fence(ring, valid, 255.0)[0]),
+            bound_ms=bytes_bound_ms(2 * ring.numel() * ring.element_size() + valid.numel()),
+        )
+
+    timing = {
+        "ring_write": dict(
+            ms=ms(lambda: ring_write(ring, obs, c)),
+            plain_ms=ms(lambda: ring_write_reference(ring, obs, c)),
+            library_ms=ms(lambda: ring[:, c].copy_(obs)),
+            bound_ms=bytes_bound_ms(2 * frame_bytes),
+        ),
+        # The select reads, per row, only the source it picks: one frame in,
+        # one frame out, and the done bytes.
+        "ring_write_where": dict(
+            ms=ms(lambda: ring_write_where(ring, obs, reset, done, c)),
+            plain_ms=ms(lambda: ring_write_where_reference(ring, obs, reset, done, c)),
+            library_ms=ms(lambda: torch.where(done[:, None], reset, obs, out=ring[:, c])),
+            bound_ms=bytes_bound_ms(2 * frame_bytes + VIS_B),
+            where_then_ring_write_ms=ms(
+                lambda: ring_write(ring, torch.where(done[:, None], reset, obs), c)),
+        ),
+        "copy_fence": dict(
+            ms=ms(lambda: copy_fence(ring[:, c])),
+            plain_ms=ms(lambda: copy_fence_reference(ring[:, c])),
+            library_ms=ms(lambda: ring[:, c].contiguous()),
+            bound_ms=bytes_bound_ms(2 * frame_bytes),
+        ),
+        # B6a at the 4-channel path's shapes: act (1024, 4, 28224) bfloat16,
+        # learn (512, 4, 28224) float32.
+        "masked_scale_fence": dict(
+            **fence_times(
+                lambda: masked_scale_fence(ring_c, valid, 255.0),
+                lambda: masked_scale_fence_reference(ring_c, valid, 255.0), ring_c, valid),
+            learn_shape=fence_times(
+                lambda: masked_scale_fence(learn_ring_c, learn_valid, 255.0),
+                lambda: masked_scale_fence_reference(learn_ring_c, learn_valid, 255.0),
+                learn_ring_c, learn_valid),
+        ),
+        # B6b at the 1-channel path's: (1024, 4, 7056) bfloat16, (512, 4, 7056) float32.
+        "masked_scale_fence4": dict(
+            **fence_times(
+                lambda: masked_scale_fence4(ring, valid, H=VIS_H, W=VIS_W),
+                lambda: masked_scale_fence4_reference(ring, valid, H=VIS_H, W=VIS_W), ring, valid),
+            learn_shape=fence_times(
+                lambda: masked_scale_fence4(learn_ring, learn_valid, H=VIS_H, W=VIS_W),
+                lambda: masked_scale_fence4_reference(learn_ring, learn_valid, H=VIS_H, W=VIS_W),
+                learn_ring, learn_valid),
+        ),
+    }
+    for name, t in timing.items():
+        t["bound_by"] = "bytes"
+        t["max_abs_err"] = err[name]
+        F = VIS_C * VIS_F if name == "masked_scale_fence" else VIS_F
+        rows = [(f"B={VIS_B} T={VIS_T} F={F} bfloat16", t)]
+        if "learn_shape" in t:
+            rows.append((f"B={VIS_LEARN_B} T={VIS_T} F={F} float32", t["learn_shape"]))
+        for shape, r in rows:
+            print(
+                f"{name} {shape}: kernel {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+                f"library call {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes) "
+                f"on {card}",
+                flush=True,
+            )
+    t = timing["ring_write_where"]
+    print(f"ring_write_where against torch.where then ring_write: {t['ms']:.4f} ms vs "
+          f"{t['where_then_ring_write_ms']:.4f} ms on {card}", flush=True)
+    return timing
+
+
+def visual_wrappers():
+    from pearl_tpu_torch.ops.layout_fence import (
+        copy_fence, masked_scale_fence, masked_scale_fence4,
+    )
+    from pearl_tpu_torch.ops.ring_write import ring_write, ring_write_where
+
+    return {
+        "ring_write": ring_write, "ring_write_where": ring_write_where,
+        "copy_fence": copy_fence, "masked_scale_fence": masked_scale_fence,
+        "masked_scale_fence4": masked_scale_fence4,
+    }
+
+
+def visual_agent(num_envs, frames, batch_size):
+    """The CNN-DQN composition of the reference's visual workload, with
+    `frames` channels per frame."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import SyntheticAtari
+    from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummarization
+    from pearl_tpu_torch.neural_networks import CNNQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import VisualReplayBuffer
+
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(
+            q_network=CNNQValueNetwork(
+                input_shape=(VIS_H, VIS_W, VIS_T * frames), time_major_stack=True,
+                frame_channels=frames,
+            ),
+            training_rounds=1, batch_size=batch_size, act_dtype="bfloat16",
+            history_summarizer=FrameRingHistorySummarization(
+                history_length=VIS_T, dtype=torch.bfloat16),
+        ),
+        replay_buffer=VisualReplayBuffer(
+            capacity=8 * num_envs, stack=VIS_T, num_envs=num_envs,
+            frame_dtype=torch.bfloat16, dedup_next=True,
+        ),
+    )
+    return agent, SyntheticAtari(frames=frames, obs_dtype=torch.bfloat16)
+
+
+def check_visual_state(agent, env, astate, num_envs, steps):
+    """The bookkeeping and the values after `steps` env steps from init."""
+    from pearl_tpu_torch.history_summarization_modules import FrameRingView
+
+    replay, view = astate.replay, astate.history_carry
+    capacity = 8 * num_envs
+    assert replay.push_count == steps, (replay.push_count, steps)
+    assert replay.size == min(steps * num_envs, capacity), replay.size
+    assert replay.cursor == (steps % 8) * num_envs, replay.cursor
+    assert view.cursor == (1 + steps) % VIS_T, view.cursor
+    # Every env truncates at the same step, so after `steps` steps each has
+    # written this many frames of its current episode.
+    in_episode = steps % env.episode_len + 1
+    want = torch.zeros((VIS_T,), dtype=torch.bool)
+    for back in range(min(VIS_T, in_episode)):
+        want[(view.cursor - 1 - back) % VIS_T] = True
+    assert torch.equal(view.valid.cpu(), want[None].expand(num_envs, VIS_T)), view.valid[0]
+    assert view.ring.dtype == torch.bfloat16 and torch.isfinite(view.ring.float()).all()
+
+    bound = agent.for_env(env)
+    learner = bound.policy_learner
+    with torch.no_grad():
+        q = learner._scores(astate.learner, bound.subjective_state(astate), None)
+    assert q.shape == (num_envs, 6) and q.dtype == torch.float32 and torch.isfinite(q).all()
+
+    # Against the plain path: 8 envs' window in float32 through the kernels
+    # on the card and through the plain version on the CPU (the package
+    # switches TF32 off on import, so both are full float32).
+    import copy
+
+    small = FrameRingView(view.ring[:8].float().contiguous(), view.valid[:8].clone(), view.cursor)
+    with torch.no_grad():
+        on_card = learner.q_network.q_all(astate.learner.params, small, None)
+        cpu_view = FrameRingView(small.ring.cpu(), small.valid.cpu(), small.cursor)
+        cpu_params = copy.deepcopy(astate.learner.params).cpu()
+        on_cpu = learner.q_network.q_all(cpu_params, cpu_view, None)
+    # float32 both ways; cuDNN and the CPU sum conv taps in other orders.
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-4)
+    return q
+
+
+def run_visual_runner(card, frames, calls):
+    """`make_compiled_runner` on the visual composition at its full width,
+    with `frames` channels per frame: one warm-up call, then `calls` timed
+    ones. With 1 channel the conv input comes from `masked_scale_fence4`;
+    with more it needs a channel interleave after the fence and comes from
+    `masked_scale_fence`. Returns the launch counts of the whole run."""
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    num_envs, steps_per_learn, learns_per_call = VIS_B, 8, 8
+    agent, env = visual_agent(num_envs, frames=frames, batch_size=VIS_LEARN_B)
+    init_fn, run_fn = make_compiled_runner(
+        agent, env, num_envs=num_envs,
+        steps_per_learn=steps_per_learn, learns_per_call=learns_per_call,
+    )
+    wrappers = visual_wrappers()
+    steps_per_call = steps_per_learn * learns_per_call
+    # Per call: one ring write, one frame copy and one act fence per env
+    # step; per learn the online and the target forward's fence.
+    fence, other = "masked_scale_fence4", "masked_scale_fence"
+    if frames > 1:
+        fence, other = other, fence
+    per_call = {
+        "ring_write": 0, "ring_write_where": steps_per_call, "copy_fence": steps_per_call,
+        fence: steps_per_call + 2 * learns_per_call, other: 0,
+    }
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    astate, env_states = init_fn(0)
+    assert counts() == {**dict.fromkeys(per_call, 0), "ring_write": 1}, counts()  # the init seed
+    ring = astate.history_carry.ring
+    assert ring.shape == (num_envs, VIS_T, frames * VIS_F) and ring.dtype == torch.bfloat16
+    gen = make_generator(0, "cuda")
+    t0 = time.perf_counter()
+    astate, env_states, stats = run_fn(astate, env_states, gen)  # warm-up
+    torch.cuda.synchronize()
+    tag = f"visual runner, {frames}-channel frames"
+    print(f"{tag}, warm-up call: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    for c in range(calls):
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        want = {name: n * (c + 2) for name, n in per_call.items()}
+        want["ring_write"] = 1
+        assert counts() == want, (counts(), want)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = counts()
+
+    reward_sum, episodes = stats["reward_sum"].item(), stats["episodes"].item()
+    assert math.isfinite(reward_sum) and 0 <= reward_sum <= steps_per_call * num_envs, reward_sum
+    steps = steps_per_call * (calls + 1)
+    assert episodes == num_envs * (steps // 128 - (steps - steps_per_call) // 128), episodes
+    q = check_visual_state(agent, env, astate, num_envs, steps)
+    astate, metrics = agent.for_env(env).learn(astate, gen)
+    loss = metrics["loss"].item()
+    assert math.isfinite(loss), loss
+    sps = calls * steps_per_call * num_envs / elapsed
+    print(
+        f"{tag}: {sps:.1f} env-steps/s over {calls} calls ({elapsed:.3f} s), launches "
+        f"{launches} ({per_call} per call), last call reward_sum={reward_sum:.0f} "
+        f"episodes={episodes}, Q in [{q.min().item():.4f}, {q.max().item():.4f}], loss "
+        f"{loss:.6f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
+        flush=True,
+    )
+    profile_call(run_fn, astate, env_states, gen, elapsed / calls)
+    return launches
+
+
+REPLACES = {
+    "ring_write": "pearl_tpu/ops/ring_write.py:119",
+    "ring_write_where": "pearl_tpu/ops/ring_write.py:84",
+    "copy_fence": "pearl_tpu/ops/layout_fence.py:138",
+    "masked_scale_fence": "pearl_tpu/ops/layout_fence.py:182",
+    "masked_scale_fence4": "pearl_tpu/ops/layout_fence.py:104",
+}
+SOURCES = {
+    "ring_write": "pearl_tpu_torch/csrc/ring_write.cu",
+    "ring_write_where": "pearl_tpu_torch/csrc/ring_write.cu",
+    "copy_fence": "pearl_tpu_torch/csrc/layout_fence.cu",
+    "masked_scale_fence": "pearl_tpu_torch/csrc/layout_fence.cu",
+    "masked_scale_fence4": "pearl_tpu_torch/csrc/layout_fence.cu",
+}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -271,12 +649,13 @@ def main() -> int:
     t0 = time.perf_counter()
     from pearl_tpu_torch.ops import _build
 
-    for name, path in _build.build_all(["fused_mlp"]).items():
+    for name, path in _build.build_all(["fused_mlp", "ring_write", "layout_fence"]).items():
         print(f"built {name}: {path}", flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()
     max_err, timing = check_fused_mlp(card)
+    visual_timing = check_visual_kernels(card)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -286,6 +665,13 @@ def main() -> int:
     t0 = time.perf_counter()
     run_learning(card)
     phase("learning", t0)
+
+    t0 = time.perf_counter()
+    visual_launches = run_visual_runner(card, frames=1, calls=3)
+    multichannel = run_visual_runner(card, frames=VIS_C, calls=2)
+    assert multichannel["masked_scale_fence4"] == 0 == visual_launches["masked_scale_fence"]
+    visual_launches["masked_scale_fence"] = multichannel["masked_scale_fence"]
+    phase("visual runner", t0)
 
     act = timing[ACT_SHAPE[0]]
     kernels = [{
@@ -302,6 +688,17 @@ def main() -> int:
         "library_ms": None,
         "learn_shape": timing[LEARN_SHAPE[0]],
     }]
+    for name, t in visual_timing.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": visual_launches[name],
+            **t,
+        })
+    for k in kernels:
+        assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

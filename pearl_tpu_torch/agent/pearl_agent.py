@@ -1,11 +1,16 @@
 """PearlAgent: policy learner + safety module + history summarization +
-replay buffer (port of `pearl_tpu/agent/pearl_agent.py`, the non-frame path).
+replay buffer (port of `pearl_tpu/agent/pearl_agent.py`, without the conv1
+cache).
 
 Every function is batched over `num_envs` envs on one device, and
 `AgentState` is one dataclass carrying every module's state. `observe` pushes
 history summaries; a done env's transition keeps the summarizer's state after
 the terminal observation as `next_state`, and the post-reset observation only
 seeds that env's next window.
+
+With a `FrameRingHistorySummarization` the agent takes the frame path
+(`_observe_frames`): a step's history and replay traffic is two single
+frames and one in-place ring write, and the stacked windows are never made.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from pearl_tpu_torch.api.types import ActionResult
+from pearl_tpu_torch.ops.layout_fence import copy_fence
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.replay_buffer import BasicReplayBuffer
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
@@ -47,11 +53,33 @@ class PearlAgent:
             raise NotImplementedError(
                 "distributional learners are not ported yet (ROADMAP Queue A, item 14)"
             )
-        if getattr(self.policy_learner.history_summarizer, "is_frame_ring", False):
-            raise NotImplementedError(
-                "the frame-ring visual path is not ported yet (ROADMAP Queue A, "
-                "item 11: the visual slice)"
+        self._frame_path  # a frame-ring summarizer's pairing is checked here
+
+    @property
+    def _frame_path(self) -> bool:
+        """Visual fast path: a frame-ring summarizer paired with a frame-push
+        replay buffer and a ring-aware Q-network. A frame-ring summarizer
+        with anything else is a TypeError."""
+        summ = self.policy_learner.history_summarizer
+        if not getattr(summ, "is_frame_ring", False):
+            return False
+        if not getattr(self.replay_buffer, "supports_frame_push", False):
+            raise TypeError(
+                "FrameRingHistorySummarization requires a frame-push replay "
+                "buffer (VisualReplayBuffer): the generic path would "
+                "materialize the stacked window every step, which is the "
+                "traffic the ring eliminates. Got "
+                f"{type(self.replay_buffer).__name__}."
             )
+        net = getattr(self.policy_learner, "q_network", None)
+        if not getattr(net, "supports_frame_ring", False):
+            raise TypeError(
+                "FrameRingHistorySummarization requires a ring-aware "
+                "q-network (CNNQValueNetwork(time_major_stack=True)): other "
+                "nets cannot consume the circular FrameRingView the ring "
+                f"hands them. Got {type(net).__name__}."
+            )
+        return True
 
     # ------------------------------------------------------------------ setup
     def for_env(self, env) -> "PearlAgent":
@@ -157,9 +185,58 @@ class PearlAgent:
     ) -> AgentState:
         """Ingest a batched env step: update history, push the transition,
         reset per-env state where episodes ended."""
+        if self._frame_path:
+            return self._observe_frames(astate, result, next_obs, generator)
         astate, transition = self.observe_deferred(astate, result, next_obs, generator)
         replay_state = self.replay_buffer.push(astate.replay, transition)
         return dataclasses.replace(astate, replay=replay_state)
+
+    def _observe_frames(
+        self,
+        astate: AgentState,
+        result: ActionResult,
+        next_obs: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> AgentState:
+        """Frame-ring observe: the acting observation is read from the ring,
+        the post-step observation comes from the env, and one frame is
+        written into the ring, O(frame) instead of O(window) per step."""
+        summ = self._summ
+        done = result.done
+        # `advance` writes the ring in place (with history_length == 1 into
+        # the very slot `newest_frame` views), so the acting frame is copied
+        # out first.
+        frame_s = copy_fence(summ.newest_frame(astate.history_carry))
+        carry_next = summ.advance(astate.history_carry, result.observation, next_obs, done)
+        rest = TransitionBatch(
+            state=None,
+            action=astate.last_action.action,
+            reward=result.reward,
+            next_state=None,
+            terminated=result.terminated,
+            truncated=result.truncated,
+            action_index=astate.last_action.index,
+        )
+        replay_state = self.replay_buffer.push_frames(
+            astate.replay, frame_s, result.observation, rest
+        )
+        return dataclasses.replace(
+            astate,
+            learner=self.policy_learner.episode_reset(astate.learner, done, generator),
+            history_carry=carry_next,
+            available_mask=self._next_mask(astate, result),
+            replay=replay_state,
+        )
+
+    @staticmethod
+    def _next_mask(astate: AgentState, result: ActionResult) -> Optional[torch.Tensor]:
+        """where(done, all available, the env's mask or all available)."""
+        if astate.available_mask is None:
+            return None
+        full = torch.ones_like(astate.available_mask)
+        if result.available_actions_mask is None:
+            return full
+        return torch.where(result.done[:, None], full, result.available_actions_mask)
 
     def observe_deferred(
         self,
@@ -169,6 +246,12 @@ class PearlAgent:
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[AgentState, TransitionBatch]:
         """`observe` without the replay push: returns (astate', transition)."""
+        if self._frame_path:
+            raise ValueError(
+                "the frame-ring visual path pushes per step (frame "
+                "reconstruction needs one row per env per push); deferred "
+                "pushes are not supported"
+            )
         summ = self._summ
         learner = self.policy_learner
         rep = learner.resolved_action_representation(learner.action_space)
@@ -179,7 +262,6 @@ class PearlAgent:
         next_stored = summ.stored(carry_after)
         done = result.done
 
-        next_mask = result.available_actions_mask
         transition = TransitionBatch(
             state=prev_stored,
             action=astate.last_action.action,
@@ -196,19 +278,12 @@ class PearlAgent:
         fresh = summ.observe(zeroed, next_obs, None)
         carry_next = tree_select(done, fresh, carry_after)
 
-        mask_next = astate.available_mask
-        if mask_next is not None:
-            full = torch.ones_like(mask_next)
-            # where(done, full, next_mask or full): all-available when the env
-            # reports no mask.
-            mask_next = full if next_mask is None else torch.where(done[:, None], full, next_mask)
-
         learner_state = learner.episode_reset(astate.learner, done, generator)
         astate = dataclasses.replace(
             astate,
             learner=learner_state,
             history_carry=carry_next,
-            available_mask=mask_next,
+            available_mask=self._next_mask(astate, result),
         )
         return astate, transition
 

@@ -1,4 +1,5 @@
 from pearl_tpu_torch.envs.cartpole import CartPole, CartPoleState
+from pearl_tpu_torch.envs.synthetic_visual import SyntheticAtari, SyntheticAtariState
 from pearl_tpu_torch.envs.vector import VectorEnv
 
-__all__ = ["CartPole", "CartPoleState", "VectorEnv"]
+__all__ = ["CartPole", "CartPoleState", "SyntheticAtari", "SyntheticAtariState", "VectorEnv"]

@@ -1,6 +1,15 @@
+from pearl_tpu_torch.history_summarization_modules.frame_ring import (
+    FrameRingHistorySummarization,
+    FrameRingView,
+)
 from pearl_tpu_torch.history_summarization_modules.modules import (
     HistorySummarizationModule,
     IdentityHistorySummarization,
 )
 
-__all__ = ["HistorySummarizationModule", "IdentityHistorySummarization"]
+__all__ = [
+    "FrameRingHistorySummarization",
+    "FrameRingView",
+    "HistorySummarizationModule",
+    "IdentityHistorySummarization",
+]

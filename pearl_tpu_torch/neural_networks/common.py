@@ -1,7 +1,8 @@
 """Common NN building blocks (port of `pearl_tpu/neural_networks/common.py`).
 
-Only what the DQN path uses is ported: the plain relu MLP (no layer norm,
-dropout or skip connections) and `select_index_last`.
+Only what the DQN paths use is ported: the plain relu MLP (no layer norm,
+dropout or skip connections), the conv feature stack `ConvNet` and
+`select_index_last`.
 """
 
 from __future__ import annotations
@@ -52,8 +53,65 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         layers = self.layers()
         for layer in layers[:-1]:
-            x = F.relu(layer(x))
-        return layers[-1](x)
+            x = F.relu(promoted_linear(x, layer))
+        return promoted_linear(x, layers[-1])
+
+
+def promoted_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer(x)` in the promoted dtype of input and weights, as flax layers
+    compute (float32 for a bfloat16 input under float32 weights). A no-op
+    promotion when the dtypes agree."""
+    dtype = torch.promote_types(x.dtype, layer.weight.dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class ConvNet(nn.Module):
+    """Conv feature stack `conv_0 ... conv_{n-1}` with relu after each, then a
+    flatten (the reference `ConvNet`). `forward` takes NCHW images in
+    [0, 255] and applies the reference's float32 `/ 255` first; weights are
+    OIHW (`nn.Conv2d`), lecun-normal with zero biases as flax's `nn.Conv`.
+    The flatten is PyTorch's (C, H, W) order; `utils.jax_params` permutes the
+    next layer's columns when weights are carried over from the reference's
+    (H, W, C) flatten."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: Sequence[int] = (16, 32),
+        kernel_sizes: Sequence[int] = (8, 4),
+        strides: Sequence[int] = (4, 2),
+        paddings: Sequence[int] = (0, 0),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.layer_names: List[str] = [f"conv_{i}" for i in range(len(out_channels))]
+        channels = [in_channels, *out_channels]
+        for name, c_in, c_out, k, s, p in zip(
+            self.layer_names, channels[:-1], channels[1:], kernel_sizes, strides, paddings
+        ):
+            layer = nn.Conv2d(c_in, c_out, k, stride=s, padding=p, device="meta").to_empty(
+                device="cpu"
+            )
+            with torch.no_grad():
+                # lecun_normal: truncated normal on [-2, 2] sigma, rescaled
+                # to variance 1 / fan_in.
+                std = (1.0 / (c_in * k * k)) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(
+                    layer.weight, std=std, a=-2 * std, b=2 * std, generator=generator
+                )
+                layer.bias.zero_()
+            self.add_module(name, layer)
+
+    def layers(self) -> List[nn.Conv2d]:
+        return [getattr(self, n) for n in self.layer_names]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32) / 255.0
+        for layer in self.layers():
+            # float32 throughout, as flax promotes under lower-precision weights.
+            weight, bias = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
+            x = F.relu(F.conv2d(x, weight, bias, stride=layer.stride, padding=layer.padding))
+        return x.flatten(1)
 
 
 def select_index_last(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

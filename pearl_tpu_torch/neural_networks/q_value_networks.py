@@ -1,5 +1,6 @@
-"""Q-value networks (port of `pearl_tpu/neural_networks/q_value_networks.py`,
-`VanillaQValueNetwork` and `MultiHeadQValueNetwork` only).
+"""Q-value networks (port of `pearl_tpu/neural_networks/q_value_networks.py`:
+`VanillaQValueNetwork`, `MultiHeadQValueNetwork` and `CNNQValueNetwork`
+without its conv1-cache and ring-conv act branches).
 
 Each network is a frozen-dataclass adapter over an `nn.Module`, with the
 reference's protocol:
@@ -14,13 +15,15 @@ to its device afterwards.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from pearl_tpu_torch.neural_networks.common import MLP
+from pearl_tpu_torch.neural_networks.common import MLP, ConvNet
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp_from_module
+from pearl_tpu_torch.ops.layout_fence import masked_scale_fence, masked_scale_fence4
 
 
 class _PairQNet(nn.Module):
@@ -80,3 +83,125 @@ class MultiHeadQValueNetwork:
 
     def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
         return fused_mlp_from_module(params.MLP_0, state)
+
+
+class _CNNQNet(nn.Module):
+    """Conv stack then an MLP with one Q head per action (flax `_CNNQNet`:
+    `conv` with `conv_i`, then `MLP_0`)."""
+
+    def __init__(
+        self, input_shape, out_channels, kernel_sizes, strides, paddings, hidden_dims,
+        num_actions, generator=None,
+    ):
+        super().__init__()
+        H, W, C = input_shape
+        self.conv = ConvNet(C, out_channels, kernel_sizes, strides, paddings, generator)
+        for k, s, p in zip(kernel_sizes, strides, paddings):
+            H, W = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+        self.feature_shape = (out_channels[-1], H, W)  # (C, H, W), the flatten's order
+        self.MLP_0 = MLP(out_channels[-1] * H * W, hidden_dims, num_actions, generator=generator)
+
+    def forward(self, images):
+        """images: NCHW in [0, 255]."""
+        return self.MLP_0(self.conv(images))
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNQValueNetwork:
+    """Atari-style CNN multi-head Q. `state` is a flattened (H, W, C) image
+    batch or, with `time_major_stack`, a flattened time-major frame window
+    (T, H, W, frame_channels) whose frames become the channels t*fc + c; or a
+    `FrameRingView`, read in ring order without materialising the window
+    (`_q_all_ring`). The reference computes in NHWC; the images are the same
+    and are handed to `conv2d` as NCHW.
+
+    The convolutions and the MLP tail are outside every TPU kernel in the
+    reference and are `conv2d` / `linear` here. The ring path's masking and
+    normalising pass always runs through the hand-written fences of
+    `ops/layout_fence.py` (the reference's environment-variable gate rests on
+    a TPU measurement and is not carried over)."""
+
+    input_shape: Tuple[int, int, int] = (84, 84, 4)  # (H, W, C)
+    out_channels: Sequence[int] = (16, 32)
+    kernel_sizes: Sequence[int] = (8, 4)
+    strides: Sequence[int] = (4, 2)
+    paddings: Sequence[int] = (0, 0)
+    hidden_dims: Sequence[int] = (128,)
+    time_major_stack: bool = False
+    frame_channels: int = 1
+    conv1_cache: bool = False
+
+    def __post_init__(self):
+        if self.conv1_cache:
+            raise NotImplementedError(
+                "conv1_cache=True (the incremental-conv1 act path with its cache_write "
+                "kernel) is not ported yet (ROADMAP Queue A, item 11; Queue B, B4)"
+            )
+
+    @property
+    def supports_frame_ring(self) -> bool:
+        """Ring-aware marker: this net consumes a `FrameRingView` directly;
+        `PearlAgent` requires it of a frame-ring summarizer's network."""
+        return self.time_major_stack
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
+        del state_dim, action_dim  # the flattened state is reshaped to input_shape
+        return _CNNQNet(
+            tuple(self.input_shape), tuple(self.out_channels), tuple(self.kernel_sizes),
+            tuple(self.strides), tuple(self.paddings), tuple(self.hidden_dims), num_actions,
+            generator,
+        )
+
+    def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        if not isinstance(state, torch.Tensor) and hasattr(state, "ring"):
+            return self._q_all_ring(params, state)
+        H, W, C = self.input_shape
+        B = state.shape[0]
+        if self.time_major_stack:
+            fc = self.frame_channels
+            images = state.reshape(B, C // fc, H, W, fc).permute(0, 1, 4, 2, 3).reshape(B, C, H, W)
+        else:
+            images = state.reshape(B, H, W, C).permute(0, 3, 1, 2)
+        return params(images)
+
+    def _conv_tail(self, params, y):
+        """conv_1 ... on `y` with weights cast to `y`'s dtype, then the MLP
+        (in the promoted dtype of features and weights)."""
+        for layer in params.conv.layers()[1:]:
+            y = F.relu(
+                F.conv2d(
+                    y, layer.weight.to(y.dtype), layer.bias.to(y.dtype),
+                    stride=layer.stride, padding=layer.padding,
+                )
+            )
+        return params.MLP_0(y.flatten(1))
+
+    def _q_all_ring(self, params, view):
+        """Consume a `FrameRingView` without materialising the time-ordered
+        stack: conv1's input channels are the T frames, so rolling its kernel
+        by the ring cursor equals rolling the input into time order, and the
+        fence masks invalid frames and normalises as conv1's input is made."""
+        if not self.time_major_stack:
+            raise ValueError(
+                "FrameRingView input requires time_major_stack=True (the ring "
+                "axis is the frame-stack axis)"
+            )
+        H, W, C = self.input_shape
+        fc = self.frame_channels
+        T = C // fc
+        ring, valid, cursor = view.ring, view.valid, view.cursor
+        B = ring.shape[0]
+        conv0 = params.conv.conv_0
+        k0 = conv0.weight.to(ring.dtype)
+        b0 = conv0.bias.to(ring.dtype)
+        # Time order t -> ring slot (cursor + t) % T, so
+        # W_ring[s] = W_time[(s - cursor) % T]  <=>  roll(W_time, cursor).
+        if cursor:
+            k0 = torch.roll(k0, cursor * fc, dims=1)
+        if fc == 1:
+            inp = masked_scale_fence4(ring, valid, H=H, W=W, div=255.0)  # NCHW, C = T
+        else:
+            x = masked_scale_fence(ring, valid, div=255.0)
+            inp = x.reshape(B, T, H, W, fc).permute(0, 1, 4, 2, 3).reshape(B, C, H, W)
+        y = F.relu(F.conv2d(inp, k0, b0, stride=conv0.stride, padding=conv0.padding))
+        return self._conv_tail(params, y)

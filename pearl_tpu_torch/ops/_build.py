@@ -77,6 +77,17 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     return dict(zip(names, paths))
 
 
+def on_card(name: str, tensor) -> bool:
+    """How the wrapper `name` dispatches on `tensor`: True for a CUDA tensor
+    (launch the kernel), False for a CPU tensor (run the plain version);
+    any other device raises."""
+    if tensor.is_cuda:
+        return True
+    if tensor.device.type != "cpu":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {tensor.device}")
+    return False
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`'s library, once per process."""
     lib = _loaded.get(name)

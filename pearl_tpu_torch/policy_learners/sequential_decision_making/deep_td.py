@@ -12,17 +12,24 @@ Semantics kept from the reference:
 - The reported "loss" is the mean |TD error|, not the optimized MSE.
 - Unavailable next actions are masked to -inf before the max.
 
+- `act_dtype` (e.g. "bfloat16"): the acting forward runs on params and inputs
+  cast to that dtype and its scores return as float32; learning stays float32.
+
 Differences by design: the online params and the target are two independent
 `nn.Module`s updated in place (the reference starts with `target_params =
 params`, harmless for immutable arrays, an aliasing bug for in-place torch
-updates), and the learn-step counter is a host integer.
+updates), the learn-step counter is a host integer, and the `act_dtype` cast
+of the params is a copy kept in the state and recast by `_act_module` only
+when the params were written since the last cast (the reference casts every
+parameter on every act step; the copy holds the same values for fewer
+launches).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -53,6 +60,10 @@ class DeepTDState:
     step: int  # learn_batch counter
     action_elements: torch.Tensor  # (A, a) on the device
     action_reps: torch.Tensor  # (A, r) represented candidates on the device
+    # `params` cast to the learner's `act_dtype`; None when `act_dtype` is
+    # unset (acting then reads `params`). Read it through the learner's
+    # `_act_module`, which recasts it when `params` changed.
+    act_params: Optional[nn.Module] = None
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True, eq=False)
@@ -71,6 +82,7 @@ class DeepTDLearning(PolicyLearner):
     soft_update_tau: float = 0.75
     is_conservative: bool = False
     conservative_alpha: float = 2.0
+    act_dtype: Optional[str] = None
 
     def optimizer(self, params: nn.Module) -> torch.optim.Optimizer:
         return torch.optim.AdamW(
@@ -85,6 +97,9 @@ class DeepTDLearning(PolicyLearner):
         subj_dim, rep_dim, num_actions = self.dims(observation_dim, action_space)
         params = self.q_network.init(generator, subj_dim, rep_dim, num_actions).to(device)
         target = copy.deepcopy(params).requires_grad_(False)
+        act_params = None
+        if self.act_dtype is not None:
+            act_params = copy.deepcopy(params).requires_grad_(False).to(self._act_dtype())
         summ_params = self.history_summarizer.init_params(generator, observation_dim, rep_dim)
         elements, reps = self.action_tensors(device)
         return DeepTDState(
@@ -96,7 +111,31 @@ class DeepTDLearning(PolicyLearner):
             step=0,
             action_elements=elements,
             action_reps=reps,
+            act_params=act_params,
         )
+
+    def _act_dtype(self) -> torch.dtype:
+        dtype = getattr(torch, str(self.act_dtype), None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"act_dtype {self.act_dtype!r} is not a torch dtype name")
+        return dtype
+
+    @staticmethod
+    def _act_module(state: DeepTDState) -> nn.Module:
+        """`state.act_params`, recast from `state.params` if those were
+        written since the last cast: by a learn step, a weight load, a
+        `load_state_dict`, or because the state now holds another module.
+        Each parameter's identity and in-place version counter are compared
+        on the host, so an unchanged step costs no launch and no sync. (A
+        write through `.data` bypasses the counter: write parameters under
+        `torch.no_grad()` instead.)"""
+        stamp = tuple((id(p), p._version) for p in state.params.parameters())
+        if getattr(state.act_params, "_cast_of", None) != stamp:
+            with torch.no_grad():
+                for cast, param in zip(state.act_params.parameters(), state.params.parameters()):
+                    cast.copy_(param)
+            state.act_params._cast_of = stamp
+        return state.act_params
 
     @staticmethod
     def _candidates(state: DeepTDState, batch_size: int) -> torch.Tensor:
@@ -104,10 +143,27 @@ class DeepTDLearning(PolicyLearner):
         return reps[None].expand((batch_size,) + tuple(reps.shape))
 
     # --- acting ------------------------------------------------------------
+    def _scores(self, state, subjective_state, mask) -> torch.Tensor:
+        """Action scores for greedy selection and exploration, float32. Under
+        `act_dtype` the forward runs on the cast params and cast inputs
+        (a `FrameRingView` casts its ring)."""
+        candidates = self._candidates(state, subjective_state.shape[0])
+        params = state.params
+        if state.act_params is not None:
+            dtype = self._act_dtype()
+            params = self._act_module(state)
+            subjective_state = (
+                subjective_state.to(dtype)
+                if isinstance(subjective_state, torch.Tensor)
+                else subjective_state.astype(dtype)
+            )
+            candidates = candidates.to(dtype)
+        q = self.q_network.q_all(params, subjective_state, candidates, mask)
+        return q.to(torch.float32)
+
     @torch.no_grad()
     def act(self, state, subjective_state, mask, generator, exploit: bool = False):
-        candidates = self._candidates(state, subjective_state.shape[0])
-        scores = self.q_network.q_all(state.params, subjective_state, candidates, mask)
+        scores = self._scores(state, subjective_state, mask)
         exploit_index = self.greedy_index(scores, mask)
         if exploit:
             index, explore_state = exploit_index, state.explore_state

@@ -105,6 +105,18 @@ def online_learning(
         raise NotImplementedError(
             "deferred (chunk-granular) pushes are not ported yet (ROADMAP Queue A, item 9)"
         )
+    min_pushes = getattr(agent.replay_buffer, "min_pushes_before_sample", 1)
+    if learn and min_pushes > 1 and learning_starts == 0 and learn_every_k_steps < min_pushes:
+        # VisualReplayBuffer(dedup_next=True) excludes the newest resident
+        # push from sampling; learning off a 1-push buffer would resample
+        # that push with a zeroed next frame.
+        raise ValueError(
+            f"{type(agent.replay_buffer).__name__} needs {min_pushes} pushes before its "
+            f"first sample (min_pushes_before_sample), but learning_starts=0 with "
+            f"learn_every_k_steps={learn_every_k_steps} would learn after "
+            f"{learn_every_k_steps}. Set learning_starts >= {min_pushes} * num_envs or "
+            f"learn_every_k_steps >= {min_pushes}."
+        )
     device = resolve_device(device)
     agent = agent.for_env(env)
     venv = VectorEnv(env, num_envs, device)

@@ -8,6 +8,8 @@ names, e.g. for `MultiHeadQValueNetwork` and for `VanillaQValueNetwork`
 
 Flax `Dense.kernel` is (in, out); `nn.Linear.weight`, and therefore the
 `fused_mlp` kernel's W, is (out, in): each kernel is transposed on the way in.
+`CNNQValueNetwork`'s tree adds `{"conv": {"conv_0": {"kernel", "bias"}, ...}}`
+with HWIO kernels (`load_flax_cnn_q_params`).
 """
 
 from __future__ import annotations
@@ -43,4 +45,46 @@ def load_flax_q_params(net: nn.Module, params: Mapping) -> nn.Module:
     if set(params) != {"MLP_0"}:
         raise ValueError(f"expected a {{'MLP_0': ...}} param tree, got keys {sorted(params)}")
     load_flax_mlp(net.MLP_0, params["MLP_0"])
+    return net
+
+
+@torch.no_grad()
+def load_flax_cnn_q_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `CNNQValueNetwork`'s flax params,
+    `{"conv": {"conv_i": {kernel, bias}}, "MLP_0": {...}}`, into the port's
+    `_CNNQNet`; returns `net`.
+
+    Flax conv kernels are HWIO and `nn.Conv2d` weights OIHW: each is
+    transposed (3, 2, 0, 1). The reference flattens its NHWC features as
+    (H, W, C) and the port flattens NCHW as (C, H, W), so the rows of the
+    first MLP kernel are permuted to the port's order on the way in."""
+    if set(params) != {"conv", "MLP_0"}:
+        raise ValueError(f"expected a {{'conv', 'MLP_0'}} param tree, got keys {sorted(params)}")
+    if set(params["conv"]) != set(net.conv.layer_names):
+        raise ValueError(
+            f"flax conv layers {sorted(params['conv'])} != port layers {net.conv.layer_names}"
+        )
+    for name, layer in zip(net.conv.layer_names, net.conv.layers()):
+        kernel = torch.from_numpy(np.array(params["conv"][name]["kernel"], dtype=np.float32))
+        bias = torch.from_numpy(np.array(params["conv"][name]["bias"], dtype=np.float32))
+        weight = kernel.permute(3, 2, 0, 1)
+        if weight.shape != layer.weight.shape or bias.shape != layer.bias.shape:
+            raise ValueError(
+                f"{name}: flax kernel {tuple(kernel.shape)} / bias {tuple(bias.shape)} "
+                f"do not fit nn.Conv2d weight {tuple(layer.weight.shape)}"
+            )
+        layer.weight.copy_(weight)
+        layer.bias.copy_(bias)
+    C, H, W = net.feature_shape
+    mlp = {name: dict(layer) for name, layer in params["MLP_0"].items()}
+    first = net.MLP_0.layer_names[0]
+    kernel = np.array(mlp[first]["kernel"], dtype=np.float32)
+    if kernel.shape[0] != H * W * C:
+        raise ValueError(
+            f"{first}: flax kernel {kernel.shape} does not take {H}x{W}x{C} features"
+        )
+    mlp[first]["kernel"] = (
+        kernel.reshape(H, W, C, -1).transpose(2, 0, 1, 3).reshape(H * W * C, -1)
+    )
+    load_flax_mlp(net.MLP_0, mlp)
     return net

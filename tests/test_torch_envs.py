@@ -1,19 +1,28 @@
-"""CartPole and the vector env of the PyTorch port (pearl_tpu_torch/envs)
-against the JAX package's (pearl_tpu/envs): the same numpy-made states and
-actions give the same next state, reward, terminated and truncated, and the
-auto-reset keeps the terminal observation in the result while the next
-observation comes from the given reset states.
+"""CartPole, SyntheticAtari and the vector env of the PyTorch port
+(pearl_tpu_torch/envs) against the JAX package's (pearl_tpu/envs): the same
+numpy-made states and actions give the same next state, reward, terminated
+and truncated, and the auto-reset keeps the terminal observation in the
+result while the next observation comes from the given reset states.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pearl_tpu.envs.cartpole import CartPole as JaxCartPole
 from pearl_tpu.envs.cartpole import CartPoleState as JaxCartPoleState
+from pearl_tpu.envs.synthetic_visual import SyntheticAtari as JaxSyntheticAtari
+from pearl_tpu.envs.synthetic_visual import SyntheticAtariState as JaxSyntheticAtariState
 from pearl_tpu.utils.pytree import tree_select as jax_tree_select
-from pearl_tpu_torch.envs import CartPole, CartPoleState, VectorEnv
+from pearl_tpu_torch.envs import (
+    CartPole,
+    CartPoleState,
+    SyntheticAtari,
+    SyntheticAtariState,
+    VectorEnv,
+)
 from pearl_tpu_torch.utils import make_generator
 
 torch.set_num_threads(1)
@@ -124,3 +133,86 @@ def test_vector_env_reset_draws_the_reference_box():
     _, again = venv.reset(make_generator(0, torch.device("cpu")))
     torch.testing.assert_close(obs, again, rtol=0, atol=0)
     assert CartPole().observation_dim == 4 and CartPole().action_space.n == 2
+
+
+def _atari_case(B=16, seed=0):
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0.0, 6.28, B).astype(np.float32)
+    t = rng.integers(0, 100, B).astype(np.int32)
+    t[:3] = 127  # truncated this step (episode_len 128)
+    actions = rng.integers(0, 6, (B, 1)).astype(np.float32)
+    # Half the envs take the rewarded action.
+    target = (np.floor(phase * np.float32(10.0)).astype(np.int32) + t) % 6
+    actions[::2, 0] = target[::2]
+    return phase, t, actions
+
+
+@pytest.mark.parametrize(
+    "frames,tdtype,jdtype", [(1, None, None), (4, None, None), (1, torch.bfloat16, jnp.bfloat16)]
+)
+def test_synthetic_atari_step_matches_jax(frames, tdtype, jdtype):
+    phase, t, actions = _atari_case()
+    kw = dict(height=20, width=18, frames=frames)
+    jenv, tenv = JaxSyntheticAtari(obs_dtype=jdtype, **kw), SyntheticAtari(obs_dtype=tdtype, **kw)
+    jstate = JaxSyntheticAtariState(phase=jnp.asarray(phase), t=jnp.asarray(t))
+    keys = jax.random.split(jax.random.PRNGKey(0), len(phase))
+    jnew, jres = jax.vmap(jenv.step)(jstate, jnp.asarray(actions), keys)
+    tnew, tres = tenv.step(
+        SyntheticAtariState(torch.from_numpy(phase), torch.from_numpy(t)), torch.from_numpy(actions)
+    )
+    assert tres.observation.shape == (16, 20 * 18 * frames) == jres.observation.shape
+    assert tres.observation.dtype == (tdtype or torch.float32)
+    # The sine's argument is summed in float32 in the same order; XLA's and
+    # PyTorch's CPU sin may differ by an ulp of the value (atol 2e-7 near 0),
+    # and the cast to bfloat16 can turn that into one bfloat16 ulp (2^-8).
+    want = np.asarray(jres.observation.astype(jnp.float32))
+    tol = dict(rtol=2.0**-8, atol=2.0**-16) if tdtype else dict(rtol=1e-6, atol=2e-7)
+    np.testing.assert_allclose(tres.observation.float().numpy(), want, **tol)
+    if tdtype:
+        assert (tres.observation.float().numpy() == want).mean() > 0.99
+    np.testing.assert_array_equal(tres.reward.numpy(), np.asarray(jres.reward))
+    assert tres.reward[::2].eq(1.0).all() and tres.reward.dtype == torch.float32
+    np.testing.assert_array_equal(tres.truncated.numpy(), np.asarray(jres.truncated))
+    np.testing.assert_array_equal(tres.terminated.numpy(), np.asarray(jres.terminated))
+    assert tres.truncated[:3].all() and not tres.truncated[3:].any() and not tres.terminated.any()
+    np.testing.assert_array_equal(tnew.t.numpy(), np.asarray(jnew.t))
+    np.testing.assert_array_equal(tnew.phase.numpy(), phase)
+
+
+def test_synthetic_atari_reset_and_spaces():
+    env = SyntheticAtari(height=12, width=10, frames=1)
+    cpu = torch.device("cpu")
+    state, obs = env.reset(4096, make_generator(0, cpu), cpu)
+    assert obs.shape == (4096, 120) and obs.dtype == torch.float32
+    assert (state.phase >= 0).all() and (state.phase < 6.28).all() and state.phase.std() > 1.0
+    assert (state.t == 0).all() and state.t.dtype == torch.int32
+    _, again = env.reset(4096, make_generator(0, cpu), cpu)
+    assert torch.equal(obs, again)  # seeded
+    # The reset observation is the grid at t = 0 of the JAX env.
+    jobs = jax.vmap(JaxSyntheticAtari(height=12, width=10, frames=1)._obs)(
+        JaxSyntheticAtariState(phase=jnp.asarray(state.phase.numpy()), t=jnp.zeros(4096, jnp.int32))
+    )
+    np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), rtol=1e-6, atol=2e-7)
+    jenv = JaxSyntheticAtari()
+    full = SyntheticAtari()
+    assert full.observation_dim == jenv.observation_space.shape[-1] == 84 * 84 * 4
+    assert full.action_space.n == jenv.action_space.n == 6
+    assert full.max_episode_steps == 128
+
+
+def test_vector_env_auto_resets_synthetic_atari():
+    phase, t, actions = _atari_case()
+    env = SyntheticAtari(height=8, width=8, frames=1)
+    venv = VectorEnv(env, 16, torch.device("cpu"))
+    fresh_state = SyntheticAtariState(torch.full((16,), 1.5), torch.zeros(16, dtype=torch.int32))
+    fresh_obs = env._obs(fresh_state)
+    next_states, res, next_obs = venv.step(
+        SyntheticAtariState(torch.from_numpy(phase), torch.from_numpy(t)),
+        torch.from_numpy(actions),
+        fresh=(fresh_state, fresh_obs),
+    )
+    done = res.done
+    assert done[:3].all() and not done[3:].any()
+    assert (next_states.t[:3] == 0).all() and (next_states.phase[:3] == 1.5).all()
+    assert torch.equal(next_obs[:3], fresh_obs[:3]) and torch.equal(next_obs[3:], res.observation[3:])
+    assert not torch.equal(res.observation[:3], fresh_obs[:3])  # the terminal frame stays

@@ -1,8 +1,9 @@
-"""The first slice of the PyTorch port as a whole: the agent against the JAX
-agent on carried weights (exploit-mode acting, observe into replay, one learn
-on the same indices), the two drivers at a tiny size on the CPU, the
-no-silent-fallback rule of the entry points, and import hygiene (the port
-and chip_smoke.py import nothing of JAX or of the JAX package).
+"""The slices of the PyTorch port as wholes: the DQN agent and the visual
+CNN-DQN agent (frame ring, dedup replay) against the JAX agents on carried
+weights (exploit-mode acting, observe into replay, one learn on the same
+rows), the runner and `online_learning` at a tiny size on the CPU, the
+no-silent-fallback rule of the entry points, and import hygiene (the port and
+chip_smoke.py import nothing of JAX or of the JAX package).
 """
 
 import ast
@@ -16,6 +17,11 @@ import pytest
 import torch
 
 from pearl_tpu.agent import PearlAgent as JaxAgent
+from pearl_tpu.api.types import ActionResult as JaxActionResult
+from pearl_tpu.envs.synthetic_visual import SyntheticAtari as JaxSyntheticAtari
+from pearl_tpu.history_summarization_modules import FrameRingHistorySummarization as JaxFrameRing
+from pearl_tpu.neural_networks.q_value_networks import CNNQValueNetwork as JaxCNN
+from pearl_tpu.replay_buffers.visual import VisualReplayBuffer as JaxVisual
 from pearl_tpu.envs.cartpole import CartPole as JaxCartPole
 from pearl_tpu.envs.cartpole import CartPoleState as JaxCartPoleState
 from pearl_tpu.neural_networks.q_value_networks import MultiHeadQValueNetwork as JaxMultiHead
@@ -23,15 +29,21 @@ from pearl_tpu.policy_learners.sequential_decision_making import DeepQLearning a
 from pearl_tpu.replay_buffers.replay_buffer import BasicReplayBuffer as JaxBuffer
 from pearl_tpu.utils.pytree import tree_select as jax_tree_select
 from pearl_tpu_torch.agent import PearlAgent
-from pearl_tpu_torch.envs import CartPole, CartPoleState, VectorEnv
-from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
+from pearl_tpu_torch.api.types import ActionResult
+from pearl_tpu_torch.envs import CartPole, CartPoleState, SyntheticAtari, VectorEnv
+from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummarization
+from pearl_tpu_torch.neural_networks import CNNQValueNetwork, MultiHeadQValueNetwork
+from pearl_tpu_torch.neural_networks.q_value_networks import VanillaQValueNetwork
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp
+from pearl_tpu_torch.ops.layout_fence import copy_fence, masked_scale_fence4
+from pearl_tpu_torch.ops.ring_write import ring_write, ring_write_where
+from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice
 from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
 from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
-from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, VisualReplayBuffer
 from pearl_tpu_torch.training import make_compiled_runner, online_learning
 from pearl_tpu_torch.utils import make_generator
-from pearl_tpu_torch.utils.jax_params import load_flax_q_params
+from pearl_tpu_torch.utils.jax_params import load_flax_cnn_q_params, load_flax_q_params
 
 torch.set_num_threads(1)
 
@@ -131,6 +143,58 @@ def test_agent_acts_observes_and_learns_like_the_jax_agent():
         np.testing.assert_allclose(layer.weight.detach().numpy().T, np.asarray(ref["kernel"]), **TOL)
         np.testing.assert_allclose(layer.bias.detach().numpy(), np.asarray(ref["bias"]), **TOL)
     assert tastate.learner.step == int(jastate.learner.step) == 2
+
+
+@pytest.mark.parametrize("write", ["copy_", "load_state_dict", "replace", "learn"])
+def test_act_dtype_copy_follows_every_write_of_the_params(write):
+    B = 8
+    learner = DeepQLearning(
+        q_network=VanillaQValueNetwork(), training_rounds=1, batch_size=16, act_dtype="bfloat16"
+    )
+    tagent = PearlAgent(
+        policy_learner=learner, replay_buffer=BasicReplayBuffer(capacity=64)
+    ).for_env(CartPole())
+    rng = np.random.default_rng(0)
+    obs = torch.from_numpy(rng.uniform(-0.05, 0.05, (B, 4)).astype(np.float32))
+    astate = tagent.init(0, 4, B, obs, device="cpu")
+    learner = tagent.policy_learner
+    state = astate.learner
+
+    def scores(state):
+        with torch.no_grad():
+            return learner._scores(state, obs, None)
+
+    before = scores(state)
+    cast_module = state.act_params
+    stamp = cast_module._cast_of
+    assert torch.equal(scores(state), before) and cast_module._cast_of == stamp  # no recast
+    other = learner.q_network.init(make_generator(5, CPU), 4, 2, 2)
+    if write == "copy_":
+        with torch.no_grad():
+            for p, q in zip(state.params.parameters(), other.parameters()):
+                p.copy_(q)
+    elif write == "load_state_dict":
+        state.params.load_state_dict(other.state_dict())
+    elif write == "replace":
+        state = dataclasses.replace(state, params=other)
+    else:
+        astate, _ = tagent.act(astate, None, exploit=True)
+        result = ActionResult(
+            observation=obs, reward=torch.ones(B),
+            terminated=torch.zeros(B, dtype=torch.bool), truncated=torch.zeros(B, dtype=torch.bool),
+        )
+        astate = tagent.observe(astate, result, obs)
+        astate, _ = tagent.learn(astate, make_generator(1, CPU))
+        state = astate.learner
+    after = scores(state)
+    assert not torch.equal(after, before)
+    for cast, p in zip(cast_module.parameters(), state.params.parameters()):
+        assert cast.dtype == torch.bfloat16 and torch.equal(cast, p.detach().to(torch.bfloat16))
+    # The acting scores are those of the bfloat16 cast of the new params.
+    q = learner.q_network.q_all(
+        cast_module, obs.to(torch.bfloat16), learner._candidates(state, B).to(torch.bfloat16), None
+    )
+    assert torch.equal(after, q.detach().to(torch.float32))
 
 
 def test_runner_runs_on_cpu_at_a_tiny_size():
@@ -233,12 +297,255 @@ def test_online_learning_modes_not_ported_raise(kwargs):
 
 
 def test_frame_ring_path_raises():
+    # A frame-ring summarizer is accepted only with a frame-push replay
+    # buffer and a ring-aware Q-network; anything else is a TypeError at
+    # construction, as in the JAX agent (whose check runs at first use).
+    summ = FrameRingHistorySummarization(history_length=4)
+    ring_net = CNNQValueNetwork(input_shape=(20, 20, 4), time_major_stack=True)
+    visual = VisualReplayBuffer(capacity=64, stack=4, num_envs=8)
+    with pytest.raises(TypeError, match="frame-push replay"):
+        PearlAgent(policy_learner=DeepQLearning(q_network=ring_net, history_summarizer=summ))
+    with pytest.raises(TypeError, match="ring-aware"):
+        PearlAgent(policy_learner=DeepQLearning(history_summarizer=summ), replay_buffer=visual)
+    with pytest.raises(TypeError, match="ring-aware"):
+        PearlAgent(
+            policy_learner=DeepQLearning(
+                q_network=CNNQValueNetwork(input_shape=(20, 20, 4)), history_summarizer=summ
+            ),
+            replay_buffer=visual,
+        )
+    jagent = JaxAgent(policy_learner=JaxDQN(history_summarizer=JaxFrameRing(history_length=4)))
+    with pytest.raises(TypeError, match="frame-push replay"):
+        jagent._frame_path
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(q_network=ring_net, history_summarizer=summ),
+        replay_buffer=visual,
+    )
+    assert agent._frame_path and not _online_agent()._frame_path
+    with pytest.raises(ValueError, match="deferred"):
+        agent.observe_deferred(None, None, None)
+    with pytest.raises(NotImplementedError, match="conv1_cache"):
+        CNNQValueNetwork(time_major_stack=True, conv1_cache=True)
+
     @dataclasses.dataclass(frozen=True)
     class FrameRing:
         is_frame_ring: bool = True
 
-    with pytest.raises(NotImplementedError, match="visual slice"):
+    with pytest.raises(TypeError, match="frame-push replay"):
         PearlAgent(policy_learner=DeepQLearning(history_summarizer=FrameRing()))
+
+
+VIS = dict(H=20, W=20, T=4, B=6, A=6, batch=16)
+
+
+def _visual_agents(ring_tdtype=None, ring_jdtype=None, act_dtype=None, T=VIS["T"]):
+    H, W, B = VIS["H"], VIS["W"], VIS["B"]
+    net = dict(input_shape=(H, W, T), time_major_stack=True, hidden_dims=(24,))
+    buf = dict(capacity=8 * B, stack=T, num_envs=B, dedup_next=True)
+    learner = dict(training_rounds=1, batch_size=VIS["batch"], act_dtype=act_dtype)
+    jagent = JaxAgent(
+        policy_learner=JaxDQN(
+            q_network=JaxCNN(**net),
+            history_summarizer=JaxFrameRing(history_length=T, dtype=ring_jdtype), **learner,
+        ),
+        replay_buffer=JaxVisual(frame_dtype=ring_jdtype, **buf),
+    )
+    tagent = PearlAgent(
+        policy_learner=DeepQLearning(
+            q_network=CNNQValueNetwork(**net),
+            history_summarizer=FrameRingHistorySummarization(history_length=T, dtype=ring_tdtype),
+            **learner,
+        ),
+        replay_buffer=VisualReplayBuffer(frame_dtype=ring_tdtype, **buf),
+    )
+    env = dict(height=H, width=W, frames=1, num_actions=VIS["A"])
+    return jagent.for_env(JaxSyntheticAtari(**env)), tagent.for_env(SyntheticAtari(**env))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy() if x.is_floating_point() else x.numpy()
+    return np.asarray(x.astype(jnp.float32)) if x.dtype == jnp.bfloat16 else np.asarray(x)
+
+
+@pytest.mark.parametrize(
+    "ring_tdtype,ring_jdtype,act_dtype,T",
+    [
+        (None, None, None, 4),
+        (torch.bfloat16, jnp.bfloat16, "bfloat16", 4),
+        # A window of one frame: the slot the acting frame is read from is
+        # the slot the step writes, so the read must come first.
+        (None, None, None, 1),
+    ],
+)
+def test_visual_agent_acts_observes_and_learns_like_the_jax_agent(
+    ring_tdtype, ring_jdtype, act_dtype, T
+):
+    H, W, B, A = VIS["H"], VIS["W"], VIS["B"], VIS["A"]
+    F, steps = H * W, 11
+    rng = np.random.default_rng(0)
+    jagent, tagent = _visual_agents(ring_tdtype, ring_jdtype, act_dtype, T)
+    first = rng.uniform(0, 255, (B, F)).astype(np.float32)
+    jastate = jagent.init(jax.random.PRNGKey(0), F, B, jnp.asarray(first))
+    tastate = tagent.init(0, F, B, torch.from_numpy(first), device="cpu")
+    weights = jax.tree.map(np.asarray, jastate.learner.params)
+    for module in (tastate.learner.params, tastate.learner.target_params):
+        load_flax_cnn_q_params(module, weights)
+    if act_dtype:
+        # The loaded weights reach the acting copy with no help from the caller.
+        cast_module = tagent.policy_learner._act_module(tastate.learner)
+        for cast, p in zip(cast_module.parameters(), tastate.learner.params.parameters()):
+            assert cast.dtype == torch.bfloat16
+            assert torch.equal(cast, p.detach().to(torch.bfloat16))
+
+    jlearner, tlearner = jagent.policy_learner, tagent.policy_learner
+    key = jax.random.PRNGKey(1)
+    for step in range(steps):
+        key, k_act, k_obs = jax.random.split(key, 3)
+        jscores = jlearner._scores(
+            jastate.learner, jagent.subjective_state(jastate), jlearner.represented_candidates(B), None
+        )
+        with torch.no_grad():
+            tscores = tlearner._scores(tastate.learner, tagent.subjective_state(tastate), None)
+        assert tscores.dtype == torch.float32 and tscores.shape == (B, A)
+        if act_dtype:
+            # bfloat16 forward in both packages (see test_torch_cnn.py): 3e-2.
+            np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores), rtol=0, atol=3e-2)
+        else:
+            np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores), rtol=1e-5, atol=1e-5)
+        jastate, jchoice = jagent.act(jastate, k_act, exploit=True)
+        tastate, tchoice = tagent.act(tastate, None, exploit=True)
+        if not act_dtype:
+            np.testing.assert_array_equal(tchoice.index.numpy(), np.asarray(jchoice.index))
+        # The same actions go into both replays whatever a near-tie did.
+        tastate.last_action = ActionChoice(
+            action=torch.from_numpy(np.array(jchoice.action)),
+            index=torch.from_numpy(np.array(jchoice.index)),
+        )
+
+        obs = rng.uniform(0, 255, (B, F)).astype(np.float32)
+        fresh = rng.uniform(0, 255, (B, F)).astype(np.float32)
+        reward = rng.uniform(0, 1, B).astype(np.float32)
+        terminated = np.zeros(B, bool)
+        truncated = np.zeros(B, bool)
+        terminated[0] = step in (2, 7)
+        truncated[1] = step == 4
+        truncated[:] |= step == 8  # every env at once, as a lockstep time limit
+        truncated &= ~terminated
+        done = terminated | truncated
+        next_obs = np.where(done[:, None], fresh, obs)
+        jres = JaxActionResult(
+            observation=jnp.asarray(obs), reward=jnp.asarray(reward),
+            terminated=jnp.asarray(terminated), truncated=jnp.asarray(truncated),
+        )
+        tres = ActionResult(
+            observation=torch.from_numpy(obs), reward=torch.from_numpy(reward),
+            terminated=torch.from_numpy(terminated), truncated=torch.from_numpy(truncated),
+        )
+        jastate = jagent.observe(jastate, jres, jnp.asarray(next_obs), k_obs)
+        tastate = tagent.observe(tastate, tres, torch.from_numpy(next_obs))
+
+        jview, tview = jastate.history_carry, tastate.history_carry
+        assert tview.cursor == int(jview.cursor) == (step + 2) % T
+        np.testing.assert_array_equal(tview.valid.numpy(), np.asarray(jview.valid))
+        np.testing.assert_array_equal(_f32(tview.ring), _f32(jview.ring))
+
+    jrep, trep = jastate.replay, tastate.replay
+    assert trep.push_count == int(jrep.push_count) == steps
+    assert trep.size == int(jrep.size) and trep.cursor == int(jrep.cursor)
+    np.testing.assert_array_equal(_f32(trep.storage["frame_s"]), _f32(jrep.storage["frame_s"]))
+    np.testing.assert_array_equal(trep.storage["seq"].numpy(), np.asarray(jrep.storage["seq"]))
+    for f in ("reward", "action", "terminated", "truncated", "action_index"):
+        np.testing.assert_array_equal(
+            _f32(getattr(trep.storage["rest"], f)), _f32(getattr(jrep.storage["rest"], f)), err_msg=f
+        )
+    trunc = trep.storage["rest"].truncated.numpy()
+    assert trunc.sum() >= B
+    np.testing.assert_array_equal(
+        _f32(trep.storage["frame_t"])[trunc], _f32(jrep.storage["frame_t"])[trunc]
+    )
+
+    # One learn on the JAX agent's own rows (pearl_agent.py:416,
+    # policy_learner.py:182, visual.py:277-282). Sampled frames are promoted
+    # to float32 and learning is float32 in both dtype settings.
+    learn_key = jax.random.PRNGKey(7)
+    k_l, _ = jax.random.split(learn_key)
+    oldest, n_valid = tagent.replay_buffer._sample_range(trep)
+    q = np.array(jax.random.randint(jax.random.split(k_l, 1)[0], (VIS["batch"],), 0, n_valid))
+    jastate, jmetrics = jagent.learn(jastate, learn_key)
+    tastate, tmetrics = tagent.learn(tastate, None, indices=torch.from_numpy(q)[None])
+    np.testing.assert_allclose(tmetrics["loss"].item(), float(jmetrics["loss"]), rtol=1e-5, atol=1e-6)
+    assert tastate.learner.step == int(jastate.learner.step) == 1
+
+    module = tastate.learner.params
+    reference = tagent.policy_learner.q_network.init(torch.Generator(), 0, 0, A)
+    load_flax_cnn_q_params(reference, jax.tree.map(np.asarray, jastate.learner.params))
+    moved = 0.0
+    for (name, got), want, before in zip(
+        module.named_parameters(), reference.parameters(), tastate.learner.target_params.parameters()
+    ):
+        # One AdamW step of size ~lr = 1e-3 on float32 gradients that agree
+        # to ~1e-4 relative.
+        np.testing.assert_allclose(
+            got.detach().numpy(), want.detach().numpy(), rtol=1e-5, atol=2e-6, err_msg=name
+        )
+        moved = max(moved, (got.detach() - before).abs().max().item())
+    assert moved > 5e-4  # the weights did move, and the target is a copy that did not
+    if act_dtype:
+        # The learn step wrote the params, so the next act recasts its copy.
+        cast_module = tagent.policy_learner._act_module(tastate.learner)
+        for cast, p in zip(cast_module.parameters(), module.parameters()):
+            assert torch.equal(cast, p.detach().to(torch.bfloat16))
+        assert tagent.policy_learner._act_module(tastate.learner)._cast_of == tuple(
+            (id(p), p._version) for p in module.parameters()
+        )
+
+
+def test_visual_runner_runs_on_cpu_at_a_tiny_size():
+    num_envs, spl, lpc = 8, 4, 3
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(
+            q_network=CNNQValueNetwork(
+                input_shape=(20, 20, 4), time_major_stack=True, hidden_dims=(16,)
+            ),
+            training_rounds=1, batch_size=16, act_dtype="bfloat16",
+            history_summarizer=FrameRingHistorySummarization(history_length=4, dtype=torch.bfloat16),
+        ),
+        replay_buffer=VisualReplayBuffer(
+            capacity=8 * num_envs, stack=4, num_envs=num_envs, frame_dtype=torch.bfloat16,
+            dedup_next=True,
+        ),
+    )
+    env = SyntheticAtari(height=20, width=20, frames=1, obs_dtype=torch.bfloat16, episode_len=5)
+    init_fn, run_fn = make_compiled_runner(
+        agent, env, num_envs=num_envs, steps_per_learn=spl, learns_per_call=lpc, device="cpu"
+    )
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, CPU)
+    wrappers = (ring_write, ring_write_where, copy_fence, masked_scale_fence4)
+    before = [w.launches for w in wrappers]
+    for call in range(2):
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        assert 0 <= stats["reward_sum"].item() <= spl * lpc * num_envs
+    steps = 2 * spl * lpc
+    assert [w.launches for w in wrappers] == before  # CPU tensors run the plain versions
+    # 24 lockstep steps with episodes of 5: resets after steps 5, 10, 15, 20.
+    assert stats["episodes"].item() == 2 * num_envs
+    assert astate.replay.push_count == steps and astate.replay.size == 8 * num_envs
+    assert astate.replay.cursor == 0 and astate.learner.step == 2 * lpc
+    view = astate.history_carry
+    assert view.cursor == (1 + steps) % 4 and view.ring.dtype == torch.bfloat16
+    assert view.valid.sum(1).tolist() == [4] * num_envs  # 5 frames into the episode
+    assert all(torch.isfinite(p).all() for p in astate.learner.params.parameters())
+
+    res = online_learning(
+        agent, env, num_envs=num_envs, max_steps=20 * num_envs, learn_every_k_steps=2,
+        seed=1, device="cpu",
+    )
+    assert res.total_steps == 20 * num_envs and res.total_episodes == 4 * num_envs
+    assert res.agent_state.replay.push_count == 20
+    with pytest.raises(ValueError, match="min_pushes_before_sample"):
+        online_learning(agent, env, num_envs=num_envs, max_steps=64, device="cpu")
 
 
 def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
