@@ -20,13 +20,17 @@ Phases, each printing its seconds:
      and replay) and checks the exact launch counts of the ring and fence
      kernels, the ring and replay bookkeeping and the Q values; then the
      same composition, at the same width, on the env's default 4-channel
-     frames (a 231 MB ring), the path of `masked_scale_fence`.
+     frames (a 231 MB ring), the path of `masked_scale_fence`; then the two
+     opt-in act paths of the 1-channel composition, each at full width: the
+     conv1 cache (`conv1_cache=True`, the path of `cache_write`) and the ring
+     conv (`ring_conv=True`, the path of `ring_conv1`).
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -39,6 +43,7 @@ import torch
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 ACT_SHAPE = (131_072, (4, 64, 64, 2))
 LEARN_SHAPE = (1_024, (4, 64, 64, 2))
@@ -465,23 +470,190 @@ def check_visual_kernels(card):
           f"{t['where_then_ring_write_ms']:.4f} ms on {card}", flush=True)
     return timing
 
+# conv1 of the visual workload: 8 x 8 stride 4 to 16 channels, 20 x 20 outputs.
+VIS_K, VIS_S, VIS_OC, VIS_OH = 8, 4, 16, 20
+# B4's ragged shapes (B, T, OC, OH, OW): chunks of 75 and 7 elements move in
+# 2- and 4-byte words, T = 1 is the one-slot ring.
+CACHE_RAGGED = [(37, 3, 16, 4, 4), (5, 4, 3, 5, 5), (1, 1, 16, 4, 4), (37, 2, 1, 7, 1)]
+# B5's small and odd shapes (B, T, H, W, k, s, OC): the reference's two test
+# geometries, k == s, and a frame whose bands are not 16-byte aligned.
+CONV_SMALL = [
+    (37, 4, 20, 20, 8, 4, 16), (37, 3, 28, 28, 8, 4, 8), (1, 1, 20, 20, 4, 4, 16),
+    (5, 2, 28, 28, 4, 2, 32), (3, 4, 21, 19, 5, 3, 4),
+]
+
+
+def check_act_kernels(card):
+    """B4 `cache_write` and B5 `ring_conv1` against their plain versions on
+    the card, in float32 and bfloat16, at the shapes of the visual workload
+    and at ragged ones; then each timed at the shape its path gives it, with
+    `gather_sum` and what `ring_conv1` replaces on the act path beside them."""
+    import torch.nn.functional as F
+
+    from pearl_tpu_torch.ops.conv_cache import cache_write, cache_write_reference, gather_sum
+    from pearl_tpu_torch.ops.layout_fence import masked_scale_fence4
+    from pearl_tpu_torch.ops.ring_conv import ring_conv1, ring_conv1_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err = {"cache_write": 0.0, "ring_conv1": 0.0}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    # B4: bit-exact, the T written slabs and the untouched ones alike.
+    bench4 = (VIS_B, VIS_T, VIS_OC, VIS_OH, VIS_OH)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, OC, OH, OW in [bench4] + CACHE_RAGGED:
+            D = OC * OH * OW
+            for c in range(T) if B != VIS_B else (0, T - 1):
+                cache = rand((T, T, B, D), dtype)
+                y = rand((B, T * OC, OH, OW), dtype)
+                # y as it comes from the conv, and as a channel slice of a
+                # wider tensor (another row stride, an odd base address).
+                wide = rand((B, T * OC + 2, OH, OW), dtype)
+                for src in (y, wide[:, 1 : 1 + T * OC]):
+                    got = cache_write(cache.clone(), src, c, T=T, OC=OC)
+                    want = cache_write_reference(cache.clone(), src, c, T=T, OC=OC)
+                    assert torch.equal(_bits(got), _bits(want)), (
+                        f"cache_write differs at {(B, T, OC, OH, OW)} {dtype} cursor {c}")
+        torch.cuda.synchronize()
+        print(f"cache_write {dtype}: bit-exact at {1 + len(CACHE_RAGGED)} shapes, every "
+              f"cursor, contiguous and sliced sources", flush=True)
+
+    # B5: float32 sums in another order, rtol/atol 2e-5; in bfloat16 the one
+    # rounding of the output may fall the other way: one ulp, rtol 2^-7.
+    tol = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2**-7, atol=2e-5)}
+    bench5 = (VIS_B, VIS_T, VIS_H, VIS_W, VIS_K, VIS_S, VIS_OC)
+
+    def conv_operands(B, T, H, W, k, s, OC, dtype):
+        ring = _frames((B, T, H * W), dtype, gen)
+        valid = torch.rand((B, T), device="cuda", generator=gen) < 0.7
+        valid[0] = False  # an env with no valid frame: bias and relu alone
+        if B > 1:
+            valid[1] = True
+        wmat = torch.randn((T * k * k, OC), device="cuda", generator=gen) * (0.1 / 255.0)
+        bias = torch.randn((OC,), device="cuda", generator=gen) * 0.1
+        return ring, valid, wmat, bias
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, H, W, k, s, OC in [bench5] + CONV_SMALL:
+            ring, valid, wmat, bias = conv_operands(B, T, H, W, k, s, OC, dtype)
+            got = ring_conv1(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
+            torch.cuda.synchronize()
+            want = ring_conv1_reference(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
+            OH, OW = (H - k) // s + 1, (W - k) // s + 1
+            assert got.shape == want.shape == (B, OC, OH, OW) and got.dtype == dtype
+            assert got.is_contiguous()
+            torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
+            # Not trivially: about half the sums are positive before the relu,
+            # and the env with no valid frame holds relu(bias) alone.
+            assert 0.2 < (got[1:] > 0).float().mean().item() < 0.8 or B == 1
+            assert torch.equal(got[0].float().amax((1, 2)), torch.relu(bias).to(dtype).float())
+            err["ring_conv1"] = max(err["ring_conv1"], (got.float() - want.float()).abs().max().item())
+        print(f"ring_conv1 {dtype}: within rtol {tol[dtype]['rtol']:.3e} atol "
+              f"{tol[dtype]['atol']:.0e} of the plain version at {1 + len(CONV_SMALL)} shapes, "
+              f"max abs err so far {err['ring_conv1']:.3e}", flush=True)
+
+    # Timing at the shapes of the main paths, operands cold in the L2 cache.
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+
+    def ms(fn):
+        return device_ms(fn, flush=flush)
+
+    B, T, OC, OH, OW = bench4
+    D = OC * OH * OW
+    cache = rand((T, T, B, D), bf16)
+    y = rand((B, T * OC, OH, OW), bf16)
+    c = 2
+    rows = torch.tensor([(c - p) % T for p in range(T)], device="cuda")
+    cols = torch.arange(T, device="cuda")
+    chunks = y.view(B, T, D).permute(1, 0, 2)  # (T, B, D): chunk p of every row
+    cache_bytes = 2 * B * T * D * 2
+    timing = {"cache_write": dict(
+        ms=ms(lambda: cache_write(cache, y, c, T=T, OC=OC)),
+        plain_ms=ms(lambda: cache_write_reference(cache, y, c, T=T, OC=OC)),
+        library_ms=ms(lambda: cache.index_put_((rows, cols), chunks)),
+        bound_ms=bytes_bound_ms(cache_bytes), bound_by="bytes",
+        max_abs_err=err["cache_write"],
+    )}
+    want = cache_write_reference(cache.clone(), y, c, T=T, OC=OC)
+    assert torch.equal(_bits(cache.clone().index_put_((rows, cols), chunks)), _bits(want))
+    valid4 = torch.rand((B, T), device="cuda", generator=gen) < 0.7
+    gather_ms = ms(lambda: gather_sum(cache, valid4, c))
+
+    ring, valid, wmat, bias = conv_operands(*bench5, bf16)
+    n_valid = int(valid.sum().item())
+    # This run's data: only valid frames are read and multiplied.
+    conv_bytes = (n_valid * VIS_F * 2 + valid.numel() + wmat.numel() * 4 + bias.numel() * 4
+                  + B * OC * OH * OW * 2)
+    conv_flops = 2 * n_valid * OH * OW * OC * VIS_K * VIS_K
+    t_bytes, t_ops = conv_bytes / HBM_BYTES_PER_S, conv_flops / BF16_FLOP_PER_S
+    w4 = (wmat * 255.0).to(bf16).reshape(T, VIS_K, VIS_K, OC).permute(3, 0, 1, 2).contiguous()
+    b16 = bias.to(bf16)
+
+    def replaced():
+        inp = masked_scale_fence4(ring, valid, H=VIS_H, W=VIS_W, div=255.0)
+        return F.relu(F.conv2d(inp, w4, b16, stride=VIS_S))
+
+    timing["ring_conv1"] = dict(
+        ms=ms(lambda: ring_conv1(ring, valid, wmat, bias, H=VIS_H, W=VIS_W, k=VIS_K, s=VIS_S)),
+        plain_ms=ms(lambda: ring_conv1_reference(
+            ring, valid, wmat, bias, H=VIS_H, W=VIS_W, k=VIS_K, s=VIS_S)),
+        library_ms=None,
+        bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        max_abs_err=err["ring_conv1"],
+        fence4_conv2d_relu_ms=ms(replaced),
+        valid_frames=n_valid,
+    )
+    # The same kernel on a float32 ring, bound by its float32 operations.
+    ring32 = ring.float()
+    f32_bytes = conv_bytes + n_valid * VIS_F * 2 + B * OC * OH * OW * 2
+    t_bytes, t_ops = f32_bytes / HBM_BYTES_PER_S, conv_flops / FP32_FLOP_PER_S
+    timing["ring_conv1"]["float32_shape"] = dict(
+        ms=ms(lambda: ring_conv1(ring32, valid, wmat, bias, H=VIS_H, W=VIS_W, k=VIS_K, s=VIS_S)),
+        bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+    t = timing["cache_write"]
+    print(f"cache_write B={B} T={T} D={D} bfloat16: kernel {t['ms']:.4f} ms, plain version (T "
+          f"copy_ calls) {t['plain_ms']:.4f} ms, library call (one index_put_) "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes) on {card}", flush=True)
+    print(f"gather_sum (plain PyTorch, no kernel) cache ({T}, {T}, {B}, {D}) bfloat16: "
+          f"{gather_ms:.4f} ms on {card}", flush=True)
+    t = timing["ring_conv1"]
+    print(f"ring_conv1 B={B} T={T} {VIS_H}x{VIS_W} k={VIS_K} s={VIS_S} OC={OC} bfloat16, "
+          f"{n_valid} of {B * T} frames valid: kernel {t['ms']:.4f} ms, plain version "
+          f"{t['plain_ms']:.4f} ms, library call none, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); what it replaces on the act path (masked_scale_fence4 + "
+          f"F.conv2d with bias + relu, bfloat16) {t['fence4_conv2d_relu_ms']:.4f} ms on {card}",
+          flush=True)
+    t = t["float32_shape"]
+    print(f"ring_conv1 the same shape float32: kernel {t['ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}", flush=True)
+    return timing
+
 
 def visual_wrappers():
     from pearl_tpu_torch.ops.layout_fence import (
         copy_fence, masked_scale_fence, masked_scale_fence4,
     )
+    from pearl_tpu_torch.ops.conv_cache import cache_write
+    from pearl_tpu_torch.ops.ring_conv import ring_conv1
     from pearl_tpu_torch.ops.ring_write import ring_write, ring_write_where
 
     return {
         "ring_write": ring_write, "ring_write_where": ring_write_where,
         "copy_fence": copy_fence, "masked_scale_fence": masked_scale_fence,
-        "masked_scale_fence4": masked_scale_fence4,
+        "masked_scale_fence4": masked_scale_fence4, "cache_write": cache_write,
+        "ring_conv1": ring_conv1,
     }
 
 
-def visual_agent(num_envs, frames, batch_size):
+def visual_agent(num_envs, frames, batch_size, **net_options):
     """The CNN-DQN composition of the reference's visual workload, with
-    `frames` channels per frame."""
+    `frames` channels per frame; `net_options` select an opt-in act path of
+    the network (`conv1_cache=True` or `ring_conv=True`)."""
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import SyntheticAtari
     from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummarization
@@ -493,7 +665,7 @@ def visual_agent(num_envs, frames, batch_size):
         policy_learner=DeepQLearning(
             q_network=CNNQValueNetwork(
                 input_shape=(VIS_H, VIS_W, VIS_T * frames), time_major_stack=True,
-                frame_channels=frames,
+                frame_channels=frames, **net_options,
             ),
             training_rounds=1, batch_size=batch_size, act_dtype="bfloat16",
             history_summarizer=FrameRingHistorySummarization(
@@ -537,28 +709,71 @@ def check_visual_state(agent, env, astate, num_envs, steps):
     # switches TF32 off on import, so both are full float32).
     import copy
 
+    net = learner.q_network
+    cached = view.cache is not None
     small = FrameRingView(view.ring[:8].float().contiguous(), view.valid[:8].clone(), view.cursor)
     with torch.no_grad():
-        on_card = learner.q_network.q_all(astate.learner.params, small, None)
+        if cached:  # the small window's own cache, through copy_fence and cache_write
+            small.cache = net.refresh_cache(astate.learner.params, small)
+        on_card = net.q_all(astate.learner.params, small, None)
         cpu_view = FrameRingView(small.ring.cpu(), small.valid.cpu(), small.cursor)
         cpu_params = copy.deepcopy(astate.learner.params).cpu()
-        on_cpu = learner.q_network.q_all(cpu_params, cpu_view, None)
-    # float32 both ways; cuDNN and the CPU sum conv taps in other orders.
-    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-4)
+        if cached:
+            cpu_view.cache = net.refresh_cache(cpu_params, cpu_view)
+        on_cpu = net.q_all(cpu_params, cpu_view, None)
+        # The default branch on the CPU (fences and the window conv).
+        direct = dataclasses.replace(net, conv1_cache=False, ring_conv=False)
+        on_cpu_direct = direct.q_all(cpu_params, dataclasses.replace(cpu_view, cache=None), None)
+    # float32 both ways; cuDNN, the kernels and the CPU sum conv taps in other
+    # orders (1e-4); the cached path groups its sum by frame (2e-4).
+    tol = 2e-4 if cached else 1e-4
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=tol, atol=tol)
+    torch.testing.assert_close(on_card.cpu(), on_cpu_direct, rtol=tol, atol=tol)
     return q
 
 
-def run_visual_runner(card, frames, calls):
+def check_incremental_cache(agent, env, astate, env_states, gen, num_envs):
+    """Three more env steps without a learn, at full width, so that the live
+    cache holds three per-step `cache_write`s on top of the last refresh:
+    it must equal a from-scratch `refresh_cache` with the same weights (the
+    same convolution of the same frames: one bfloat16 ulp at most), and the
+    cached Q must agree with the direct Q (bfloat16 forward: 3e-2)."""
+    from pearl_tpu_torch.training import make_compiled_runner
+
+    _, step_fn = make_compiled_runner(
+        agent, env, num_envs=num_envs, steps_per_learn=3, learns_per_call=1, learn=False)
+    astate, env_states, _ = step_fn(astate, env_states, gen)
+    bound = agent.for_env(env)
+    net, learner = bound.policy_learner.q_network, bound.policy_learner
+    view = astate.history_carry
+    live = view.cache.clone()
+    fresh = net.refresh_cache(astate.learner.params, dataclasses.replace(view, cache=None))
+    torch.testing.assert_close(live.float(), fresh.float(), rtol=2**-7, atol=1e-3)
+    differing = (live != fresh).sum().item()
+    with torch.no_grad():
+        q_cached = learner._scores(astate.learner, bound.subjective_state(astate), None)
+        q_direct = learner._scores(astate.learner, dataclasses.replace(view, cache=None), None)
+    torch.testing.assert_close(q_cached, q_direct, rtol=0, atol=3e-2)
+    print(f"incremental cache after 3 steps without a learn: {differing} of {live.numel()} "
+          f"elements differ from a from-scratch refresh (within one bfloat16 ulp), cached Q "
+          f"within {(q_cached - q_direct).abs().max().item():.3e} of the direct Q", flush=True)
+    return astate, env_states
+
+
+def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
     """`make_compiled_runner` on the visual composition at its full width,
     with `frames` channels per frame: one warm-up call, then `calls` timed
     ones. With 1 channel the conv input comes from `masked_scale_fence4`;
     with more it needs a channel interleave after the fence and comes from
-    `masked_scale_fence`. Returns the launch counts of the whole run."""
+    `masked_scale_fence`. `conv1_cache` and `ring_conv` select the network's
+    opt-in act paths, which leave the fences to the learn step. Returns the
+    launch counts of the whole run and its env-steps/s."""
     from pearl_tpu_torch.training import make_compiled_runner
     from pearl_tpu_torch.utils import make_generator
 
     num_envs, steps_per_learn, learns_per_call = VIS_B, 8, 8
-    agent, env = visual_agent(num_envs, frames=frames, batch_size=VIS_LEARN_B)
+    net_options = {k: True for k, on in (("conv1_cache", conv1_cache), ("ring_conv", ring_conv)) if on}
+    agent, env = visual_agent(num_envs, frames=frames, batch_size=VIS_LEARN_B, **net_options)
     init_fn, run_fn = make_compiled_runner(
         agent, env, num_envs=num_envs,
         steps_per_learn=steps_per_learn, learns_per_call=learns_per_call,
@@ -572,8 +787,19 @@ def run_visual_runner(card, frames, calls):
         fence, other = other, fence
     per_call = {
         "ring_write": 0, "ring_write_where": steps_per_call, "copy_fence": steps_per_call,
-        fence: steps_per_call + 2 * learns_per_call, other: 0,
+        fence: steps_per_call + 2 * learns_per_call, other: 0, "cache_write": 0, "ring_conv1": 0,
     }
+    at_init = {**dict.fromkeys(per_call, 0), "ring_write": 1}  # the init seed
+    if conv1_cache or ring_conv:
+        per_call[fence] = 2 * learns_per_call  # the act path no longer masks the window
+    if conv1_cache:
+        # Per env step the entry frame is copied out of the ring and its
+        # contributions written; per learn every slot is redone.
+        per_call["copy_fence"] += steps_per_call + VIS_T * learns_per_call
+        per_call["cache_write"] = steps_per_call + VIS_T * learns_per_call
+        at_init.update(copy_fence=VIS_T, cache_write=VIS_T)
+    elif ring_conv:
+        per_call["ring_conv1"] = steps_per_call
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -582,20 +808,20 @@ def run_visual_runner(card, frames, calls):
         return {name: fn.launches for name, fn in wrappers.items()}
 
     astate, env_states = init_fn(0)
-    assert counts() == {**dict.fromkeys(per_call, 0), "ring_write": 1}, counts()  # the init seed
+    assert counts() == at_init, counts()
+    assert (astate.history_carry.cache is not None) == conv1_cache
     ring = astate.history_carry.ring
     assert ring.shape == (num_envs, VIS_T, frames * VIS_F) and ring.dtype == torch.bfloat16
     gen = make_generator(0, "cuda")
     t0 = time.perf_counter()
     astate, env_states, stats = run_fn(astate, env_states, gen)  # warm-up
     torch.cuda.synchronize()
-    tag = f"visual runner, {frames}-channel frames"
+    tag = f"visual runner, {frames}-channel frames" + "".join(f", {k}" for k in net_options)
     print(f"{tag}, warm-up call: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     for c in range(calls):
         astate, env_states, stats = run_fn(astate, env_states, gen)
-        want = {name: n * (c + 2) for name, n in per_call.items()}
-        want["ring_write"] = 1
+        want = {name: n * (c + 2) + at_init[name] for name, n in per_call.items()}
         assert counts() == want, (counts(), want)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -617,8 +843,10 @@ def run_visual_runner(card, frames, calls):
         f"{loss:.6f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
         flush=True,
     )
+    if conv1_cache:
+        astate, env_states = check_incremental_cache(agent, env, astate, env_states, gen, num_envs)
     profile_call(run_fn, astate, env_states, gen, elapsed / calls)
-    return launches
+    return launches, sps
 
 
 REPLACES = {
@@ -627,6 +855,8 @@ REPLACES = {
     "copy_fence": "pearl_tpu/ops/layout_fence.py:138",
     "masked_scale_fence": "pearl_tpu/ops/layout_fence.py:182",
     "masked_scale_fence4": "pearl_tpu/ops/layout_fence.py:104",
+    "cache_write": "pearl_tpu/ops/conv_cache.py:106",
+    "ring_conv1": "pearl_tpu/ops/ring_conv.py:208",
 }
 SOURCES = {
     "ring_write": "pearl_tpu_torch/csrc/ring_write.cu",
@@ -634,6 +864,8 @@ SOURCES = {
     "copy_fence": "pearl_tpu_torch/csrc/layout_fence.cu",
     "masked_scale_fence": "pearl_tpu_torch/csrc/layout_fence.cu",
     "masked_scale_fence4": "pearl_tpu_torch/csrc/layout_fence.cu",
+    "cache_write": "pearl_tpu_torch/csrc/conv_cache.cu",
+    "ring_conv1": "pearl_tpu_torch/csrc/ring_conv.cu",
 }
 
 
@@ -649,13 +881,15 @@ def main() -> int:
     t0 = time.perf_counter()
     from pearl_tpu_torch.ops import _build
 
-    for name, path in _build.build_all(["fused_mlp", "ring_write", "layout_fence"]).items():
+    sources = ["fused_mlp", "ring_write", "layout_fence", "conv_cache", "ring_conv"]
+    for name, path in _build.build_all(sources).items():
         print(f"built {name}: {path}", flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()
     max_err, timing = check_fused_mlp(card)
     visual_timing = check_visual_kernels(card)
+    visual_timing.update(check_act_kernels(card))
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -667,11 +901,28 @@ def main() -> int:
     phase("learning", t0)
 
     t0 = time.perf_counter()
-    visual_launches = run_visual_runner(card, frames=1, calls=3)
-    multichannel = run_visual_runner(card, frames=VIS_C, calls=2)
+    visual_launches, sps_default = run_visual_runner(card, frames=1, calls=2)
+    multichannel, _ = run_visual_runner(card, frames=VIS_C, calls=2)
     assert multichannel["masked_scale_fence4"] == 0 == visual_launches["masked_scale_fence"]
     visual_launches["masked_scale_fence"] = multichannel["masked_scale_fence"]
     phase("visual runner", t0)
+
+    t0 = time.perf_counter()
+    cached, sps_cached = run_visual_runner(card, frames=1, calls=2, conv1_cache=True)
+    fused, sps_fused = run_visual_runner(card, frames=1, calls=2, ring_conv=True)
+    # The default path once more, so that the opt-in paths stand between two
+    # runs of what they are compared with (the loop is host-bound and the
+    # host's speed drifts within a run).
+    _, sps_default_again = run_visual_runner(card, frames=1, calls=2)
+    assert visual_launches["cache_write"] == 0 == visual_launches["ring_conv1"]
+    assert cached["ring_conv1"] == 0 == fused["cache_write"]
+    visual_launches["cache_write"] = cached["cache_write"]
+    visual_launches["ring_conv1"] = fused["ring_conv1"]
+    print(
+        f"1-channel visual runner, env-steps/s side by side, in the order run: default "
+        f"{sps_default:.1f}, conv1_cache {sps_cached:.1f}, ring_conv {sps_fused:.1f}, default "
+        f"again {sps_default_again:.1f} on {card}", flush=True)
+    phase("visual runner, opt-in act paths", t0)
 
     act = timing[ACT_SHAPE[0]]
     kernels = [{

@@ -1,6 +1,5 @@
 """PearlAgent: policy learner + safety module + history summarization +
-replay buffer (port of `pearl_tpu/agent/pearl_agent.py`, without the conv1
-cache).
+replay buffer (port of `pearl_tpu/agent/pearl_agent.py`).
 
 Every function is batched over `num_envs` envs on one device, and
 `AgentState` is one dataclass carrying every module's state. `observe` pushes
@@ -11,6 +10,13 @@ seeds that env's next window.
 With a `FrameRingHistorySummarization` the agent takes the frame path
 (`_observe_frames`): a step's history and replay traffic is two single
 frames and one in-place ring write, and the stacked windows are never made.
+When the paired CNN has `conv1_cache=True` the agent also owns the conv1
+contribution cache of `ops/conv_cache.py`, held in `history_carry.cache` and
+written in place: seeded at `init`, one `cache_write` per observe, a full
+refresh after every `learn`. As in the reference these are the only
+refreshes: conv1 weights loaded into `learner.params` between them leave a
+stale cache until the next `learn`; call
+`q_network.refresh_cache(params, history_carry)` after such a load.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from pearl_tpu_torch.api.types import ActionResult
+from pearl_tpu_torch.ops.conv_cache import cache_write
 from pearl_tpu_torch.ops.layout_fence import copy_fence
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.replay_buffer import BasicReplayBuffer
@@ -81,6 +88,15 @@ class PearlAgent:
             )
         return True
 
+    @property
+    def _cache_net(self):
+        """The ring-aware CNN when its conv1-cache act path is enabled, else
+        None."""
+        if not self._frame_path:
+            return None
+        net = self.policy_learner.q_network
+        return net if getattr(net, "cache_enabled", False) else None
+
     # ------------------------------------------------------------------ setup
     def for_env(self, env) -> "PearlAgent":
         """Bind the learner to the env's action space."""
@@ -101,12 +117,20 @@ class PearlAgent:
         return rep, rep_dim, num_actions
 
     def fresh_per_env_state(
-        self, observation_dim: int, num_envs: int, initial_obs: torch.Tensor, device
+        self, observation_dim: int, num_envs: int, initial_obs: torch.Tensor, device,
+        params=None,
     ) -> dict:
-        """The per-env leaves of `AgentState` for a fresh batch of envs."""
+        """The per-env leaves of `AgentState` for a fresh batch of envs.
+        `params` (the learner's Q-network module) seeds the conv1 cache and
+        is needed only by a network with `conv1_cache=True`."""
         _, rep_dim, num_actions = self._rep_dims(observation_dim)
         carry = self._summ.init_carry(num_envs, observation_dim, rep_dim, device)
         carry = self._summ.observe(carry, initial_obs, None)
+        net = self._cache_net
+        if net is not None:
+            if params is None:
+                raise ValueError("a conv1_cache network needs `params` to seed its cache")
+            carry = dataclasses.replace(carry, cache=net.refresh_cache(params, carry))
         mask = (
             torch.ones((num_envs, num_actions), dtype=torch.bool, device=device)
             if num_actions
@@ -156,7 +180,8 @@ class PearlAgent:
             safety=safety_state,
             replay=self.replay_buffer.init(example),
             **self.fresh_per_env_state(
-                observation_dim, num_envs, initial_obs.to(device), device
+                observation_dim, num_envs, initial_obs.to(device), device,
+                params=learner_state.params,
             ),
         )
 
@@ -208,6 +233,17 @@ class PearlAgent:
         # out first.
         frame_s = copy_fence(summ.newest_frame(astate.history_carry))
         carry_next = summ.advance(astate.history_carry, result.observation, next_obs, done)
+        net = self._cache_net
+        if net is not None:
+            # The entry frame, where(done, next_obs, obs) in the ring's dtype,
+            # is what `advance` just wrote at the OLD cursor: read it back,
+            # take its contributions under the learner's current conv1
+            # weights, and scatter them along that slot's diagonal.
+            slot = astate.history_carry.cursor
+            with torch.no_grad():
+                y = net.cache_contrib_y(astate.learner.params, copy_fence(carry_next.ring[:, slot]))
+            T, _, _, _, _, _, _, OC = net._conv1_dims()
+            cache_write(carry_next.cache, y, slot, T=T, OC=OC)
         rest = TransitionBatch(
             state=None,
             action=astate.last_action.action,
@@ -301,6 +337,11 @@ class PearlAgent:
         )
         if self.policy_learner.on_policy:
             replay_state = self.replay_buffer.clear(replay_state)
+        net = self._cache_net
+        if net is not None:
+            # conv1's weights just moved: recompute every cached contribution
+            # (in place) so the act path stays exact.
+            net.refresh_cache(learner_state.params, astate.history_carry)
         return dataclasses.replace(astate, learner=learner_state, replay=replay_state), metrics
 
     def learn_batch(self, astate: AgentState, batch: TransitionBatch):

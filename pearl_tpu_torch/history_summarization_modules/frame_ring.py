@@ -56,8 +56,11 @@ class FrameRingView:
     # True for views wrapped from replay-sampled windows (the learn path),
     # False for the live acting carry.
     from_replay: bool = False
-    # Incremental-conv1 contribution cache; None while the direct window
-    # conv is in use (the cached act path is not ported yet).
+    # Incremental-conv1 contribution cache (T, T, B, OC*OH*OW) in the ring's
+    # dtype, laid out as `ops/conv_cache.py` says; owned by `PearlAgent` when
+    # the paired CNN has `conv1_cache=True` and written IN PLACE like the
+    # ring. None while the direct window conv is in use. `astype` and the
+    # summarizer's methods carry it along untouched.
     cache: Optional[torch.Tensor] = None
 
     @property

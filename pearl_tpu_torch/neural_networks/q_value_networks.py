@@ -1,6 +1,6 @@
 """Q-value networks (port of `pearl_tpu/neural_networks/q_value_networks.py`:
 `VanillaQValueNetwork`, `MultiHeadQValueNetwork` and `CNNQValueNetwork`
-without its conv1-cache and ring-conv act branches).
+with its two opt-in act branches, the conv1 cache and the ring conv).
 
 Each network is a frozen-dataclass adapter over an `nn.Module`, with the
 reference's protocol:
@@ -22,8 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from pearl_tpu_torch.neural_networks.common import MLP, ConvNet
+from pearl_tpu_torch.ops.conv_cache import cache_write, gather_sum
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp_from_module
-from pearl_tpu_torch.ops.layout_fence import masked_scale_fence, masked_scale_fence4
+from pearl_tpu_torch.ops.layout_fence import copy_fence, masked_scale_fence, masked_scale_fence4
+from pearl_tpu_torch.ops.ring_conv import ring_conv1, ring_conv_applicable
 
 
 class _PairQNet(nn.Module):
@@ -117,9 +119,23 @@ class CNNQValueNetwork:
 
     The convolutions and the MLP tail are outside every TPU kernel in the
     reference and are `conv2d` / `linear` here. The ring path's masking and
-    normalising pass always runs through the hand-written fences of
+    normalising pass runs through the hand-written fences of
     `ops/layout_fence.py` (the reference's environment-variable gate rests on
-    a TPU measurement and is not carried over)."""
+    a TPU measurement and is not carried over).
+
+    Two opt-in branches take conv1 of the window off the ACT path; the learn
+    path's replay windows (`from_replay=True`) always keep the fences:
+    - `conv1_cache=True` (with `time_major_stack`): conv1 becomes a masked sum
+      over a cache of per-frame contributions (`ops/conv_cache.py`). Needs
+      `frame_channels == 1` and `paddings[0] == 0`, and a `PearlAgent`, which
+      owns the cache: seeded at `init`, one `cache_write` per observe, a full
+      `refresh_cache` after every learn. The cached Q agrees with the direct
+      Q up to the grouping of a float32 sum, not bit for bit.
+    - `ring_conv=True` (the reference's `PEARL_TPU_RING_CONV=1`): mask, /255,
+      conv1, bias and relu in the one hand-written kernel of
+      `ops/ring_conv.py`. A geometry that kernel does not take is a
+      ValueError at construction, never a quiet change of branch.
+    With both set the cache comes first, as in the reference."""
 
     input_shape: Tuple[int, int, int] = (84, 84, 4)  # (H, W, C)
     out_channels: Sequence[int] = (16, 32)
@@ -130,13 +146,26 @@ class CNNQValueNetwork:
     time_major_stack: bool = False
     frame_channels: int = 1
     conv1_cache: bool = False
+    ring_conv: bool = False
 
     def __post_init__(self):
-        if self.conv1_cache:
-            raise NotImplementedError(
-                "conv1_cache=True (the incremental-conv1 act path with its cache_write "
-                "kernel) is not ported yet (ROADMAP Queue A, item 11; Queue B, B4)"
-            )
+        self.cache_enabled  # raises on a configuration the cache does not take
+        if self.ring_conv:
+            if not self.time_major_stack:
+                raise ValueError(
+                    "ring_conv=True requires time_major_stack=True (the ring axis is the "
+                    "frame-stack axis)"
+                )
+            T, H, W, k, s, _, _, OC = self._conv1_dims()
+            if not ring_conv_applicable(
+                T, H, W, self.frame_channels, k, s, self.paddings[0], OC
+            ):
+                raise ValueError(
+                    f"ring_conv=True does not take this conv1 (T={T}, {H}x{W} frames of "
+                    f"{self.frame_channels} channels, k={k}, s={s}, padding "
+                    f"{self.paddings[0]}, {OC} output channels): see "
+                    "ops.ring_conv.ring_conv_applicable"
+                )
 
     @property
     def supports_frame_ring(self) -> bool:
@@ -164,6 +193,83 @@ class CNNQValueNetwork:
             images = state.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return params(images)
 
+    # ------------------------------------------------ conv1-cache act path
+    def _conv1_dims(self):
+        H, W, C = self.input_shape
+        T = C // self.frame_channels
+        k, s, p = self.kernel_sizes[0], self.strides[0], self.paddings[0]
+        OH = (H + 2 * p - k) // s + 1
+        OW = (W + 2 * p - k) // s + 1
+        return T, H, W, k, s, OH, OW, self.out_channels[0]
+
+    @property
+    def cache_enabled(self) -> bool:
+        if not (self.conv1_cache and self.time_major_stack):
+            return False
+        if self.frame_channels != 1 or self.paddings[0] != 0:
+            raise ValueError("conv1_cache requires frame_channels == 1 and paddings[0] == 0")
+        return True
+
+    def cache_dim(self) -> int:
+        T, _, _, _, _, OH, OW, OC = self._conv1_dims()
+        return T * OH * OW * OC
+
+    def _k64(self, params, dtype):
+        """conv1's kernel (OC, T, k, k) in position-major single-input-channel
+        form (T*OC, 1, k, k), channel index p*OC + oc, cast to `dtype` and
+        then divided by 255: the input normalisation folded in
+        (conv(x/255, W) == conv(x, W/255))."""
+        T, _, _, k, _, _, _, OC = self._conv1_dims()
+        k0 = params.conv.conv_0.weight.to(dtype) / 255.0
+        return k0.permute(1, 0, 2, 3).reshape(T * OC, 1, k, k)
+
+    def cache_contrib_y(self, params, entry):
+        """The new frame's contrib conv output (B, T*OC, OH, OW) from the
+        contiguous (B, F) ring entry."""
+        _, H, W, _, _, _, _, _ = self._conv1_dims()
+        return self._contrib_conv(params, entry.reshape(entry.shape[0], 1, H, W))
+
+    def _contrib_conv(self, params, frames):
+        """(N, 1, H, W) frames -> (N, T*OC, OH, OW) conv1 contributions under
+        all T position kernels (before bias and relu), channel index
+        p*OC + oc. One `conv2d`: the reference computes it with XLA's
+        convolution, outside any kernel."""
+        _, _, _, _, s, _, _, _ = self._conv1_dims()
+        return F.conv2d(frames, self._k64(params, frames.dtype), stride=s).contiguous()
+
+    @torch.no_grad()
+    def refresh_cache(self, params, view):
+        """Recompute the whole (T, P, B, D) diagonal cache from the ring, with
+        `params`' conv1 weights cast to the ring's dtype: the agent calls it
+        at `init` and after every learn step. Per ring slot: the frame copied
+        out of the ring (`copy_fence`), one single-frame conv, then the same
+        diagonal write the per-step path makes (`cache_write` with cursor ==
+        slot). The cache is allocated once, zeroed, in the ring's dtype, and
+        rewritten IN PLACE afterwards: the returned tensor is `view.cache`
+        when there was one."""
+        T, H, W, _, _, OH, OW, OC = self._conv1_dims()
+        ring = view.ring
+        B = ring.shape[0]
+        cache = view.cache
+        if cache is None:
+            cache = torch.zeros((T, T, B, OC * OH * OW), dtype=ring.dtype, device=ring.device)
+        for slot in range(T):
+            frame = copy_fence(ring[:, slot])
+            y = self._contrib_conv(params, frame.reshape(B, 1, H, W))
+            cache_write(cache, y, slot, T=T, OC=OC)
+        return cache
+
+    def _q_all_cached(self, params, view):
+        """Act-path Q from the contribution cache: conv1 of the window as a
+        one-slab masked sum (`ops.conv_cache.gather_sum`), bias and relu in
+        float32, then the conv and MLP tail. Nothing here reads the ring."""
+        _, _, _, _, _, OH, OW, OC = self._conv1_dims()
+        B = view.ring.shape[0]
+        acc = gather_sum(view.cache, view.valid, view.cursor)  # (B, D) float32
+        b0 = params.conv.conv_0.bias.to(torch.float32)
+        y = F.relu(acc.reshape(B, OC, OH, OW) + b0[None, :, None, None])
+        return self._conv_tail(params, y.to(view.ring.dtype))
+
     def _conv_tail(self, params, y):
         """conv_1 ... on `y` with weights cast to `y`'s dtype, then the MLP
         (in the promoted dtype of features and weights)."""
@@ -180,12 +286,16 @@ class CNNQValueNetwork:
         """Consume a `FrameRingView` without materialising the time-ordered
         stack: conv1's input channels are the T frames, so rolling its kernel
         by the ring cursor equals rolling the input into time order, and the
-        fence masks invalid frames and normalises as conv1's input is made."""
+        fence masks invalid frames and normalises as conv1's input is made.
+        The live acting carry (`from_replay` false) takes the conv1 cache
+        when the view carries one, else the ring conv when it is asked for."""
         if not self.time_major_stack:
             raise ValueError(
                 "FrameRingView input requires time_major_stack=True (the ring "
                 "axis is the frame-stack axis)"
             )
+        if view.cache is not None and not view.from_replay and self.cache_enabled:
+            return self._q_all_cached(params, view)
         H, W, C = self.input_shape
         fc = self.frame_channels
         T = C // fc
@@ -198,6 +308,13 @@ class CNNQValueNetwork:
         # W_ring[s] = W_time[(s - cursor) % T]  <=>  roll(W_time, cursor).
         if cursor:
             k0 = torch.roll(k0, cursor * fc, dims=1)
+        if self.ring_conv and not view.from_replay:
+            # The /255 goes into the weights (conv(x/255, W) == conv(x, W/255)),
+            # flattened in the kernel's (t, ky, kx) order.
+            k = self.kernel_sizes[0]
+            wmat = (k0 / 255.0).permute(1, 2, 3, 0).reshape(T * k * k, -1)
+            y = ring_conv1(ring, valid, wmat, b0, H=H, W=W, k=k, s=self.strides[0])
+            return self._conv_tail(params, y)
         if fc == 1:
             inp = masked_scale_fence4(ring, valid, H=H, W=W, div=255.0)  # NCHW, C = T
         else:

@@ -129,7 +129,10 @@ def online_learning(
         else:
             agent_state = dataclasses.replace(
                 agent_state,
-                **agent.fresh_per_env_state(venv.observation_dim, num_envs, obs, device),
+                **agent.fresh_per_env_state(
+                    venv.observation_dim, num_envs, obs, device,
+                    params=agent_state.learner.params,
+                ),
             )
 
     run_chunk = _make_chunk_fn(

@@ -10,11 +10,14 @@ Flax `Dense.kernel` is (in, out); `nn.Linear.weight`, and therefore the
 `fused_mlp` kernel's W, is (out, in): each kernel is transposed on the way in.
 `CNNQValueNetwork`'s tree adds `{"conv": {"conv_0": {"kernel", "bias"}, ...}}`
 with HWIO kernels (`load_flax_cnn_q_params`).
+
+`frame_ring_view_from_numpy` carries the frame-ring state across: a JAX
+`FrameRingView`'s ring, validity mask, cursor and conv1 cache.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,3 +91,47 @@ def load_flax_cnn_q_params(net: nn.Module, params: Mapping) -> nn.Module:
     )
     load_flax_mlp(net.MLP_0, mlp)
     return net
+
+
+def conv1_cache_from_numpy(cache: np.ndarray, conv1_out: Tuple[int, int, int]) -> torch.Tensor:
+    """The JAX package's conv1 cache, (T, P, D, B) with D in (OH, OW, OC)
+    order, as the port's (T, P, B, D') with D' in (OC, OH, OW) order
+    (`ops/conv_cache.py`). `conv1_out` is conv1's (OH, OW, OC)."""
+    OH, OW, OC = conv1_out
+    T, P, D, B = cache.shape
+    if D != OH * OW * OC:
+        raise ValueError(f"cache D = {D} is not OH*OW*OC = {OH}*{OW}*{OC}")
+    moved = cache.reshape(T, P, OH, OW, OC, B).transpose(0, 1, 5, 4, 2, 3)
+    return torch.from_numpy(np.ascontiguousarray(moved).reshape(T, P, B, D))
+
+
+def frame_ring_view_from_numpy(
+    ring: np.ndarray,
+    valid: np.ndarray,
+    cursor: int,
+    cache: Optional[np.ndarray] = None,
+    conv1_out: Optional[Tuple[int, int, int]] = None,
+    dtype: Optional[torch.dtype] = None,
+):
+    """A JAX `FrameRingView`'s leaves, as numpy arrays (a bfloat16 leaf
+    converted to float32 first), into the port's `FrameRingView` on the CPU:
+    ring (B, T, F) and valid (B, T) as they are, the cursor as a host
+    integer, and the conv1 cache (with conv1's `conv1_out` = (OH, OW, OC))
+    in the port's layout. `dtype` casts ring and cache (exact for values
+    that came from that dtype)."""
+    from pearl_tpu_torch.history_summarization_modules.frame_ring import FrameRingView
+
+    view = FrameRingView(
+        ring=torch.from_numpy(np.array(ring)),
+        valid=torch.from_numpy(np.array(valid, dtype=bool)),
+        cursor=int(cursor),
+    )
+    if cache is not None:
+        if conv1_out is None:
+            raise ValueError("a cache needs conv1_out = (OH, OW, OC) to be laid out")
+        view.cache = conv1_cache_from_numpy(np.array(cache), conv1_out)
+    if dtype is not None:
+        view.ring = view.ring.to(dtype)
+        if view.cache is not None:
+            view.cache = view.cache.to(dtype)
+    return view

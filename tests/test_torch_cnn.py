@@ -190,8 +190,16 @@ def test_gradients_match_jax(ring_path):
 
 
 def test_options_and_errors():
-    with pytest.raises(NotImplementedError, match="Queue B, B4"):
-        CNNQValueNetwork(conv1_cache=True)
+    # The conv1 cache needs single-channel frames and an unpadded conv1; off a
+    # time-major stack the option is inert, as in the reference.
+    assert not CNNQValueNetwork(conv1_cache=True).cache_enabled
+    assert CNNQValueNetwork(time_major_stack=True, conv1_cache=True).cache_enabled
+    with pytest.raises(ValueError, match="conv1_cache requires"):
+        CNNQValueNetwork(
+            input_shape=(20, 20, 16), time_major_stack=True, frame_channels=4, conv1_cache=True
+        )
+    with pytest.raises(ValueError, match="conv1_cache requires"):
+        CNNQValueNetwork(time_major_stack=True, conv1_cache=True, paddings=(2, 0))
     assert CNNQValueNetwork(time_major_stack=True).supports_frame_ring
     assert not CNNQValueNetwork().supports_frame_ring
     net = CNNQValueNetwork(input_shape=(20, 20, 4))

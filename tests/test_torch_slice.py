@@ -34,8 +34,10 @@ from pearl_tpu_torch.envs import CartPole, CartPoleState, SyntheticAtari, Vector
 from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummarization
 from pearl_tpu_torch.neural_networks import CNNQValueNetwork, MultiHeadQValueNetwork
 from pearl_tpu_torch.neural_networks.q_value_networks import VanillaQValueNetwork
+from pearl_tpu_torch.ops.conv_cache import cache_write
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp
 from pearl_tpu_torch.ops.layout_fence import copy_fence, masked_scale_fence4
+from pearl_tpu_torch.ops.ring_conv import ring_conv1
 from pearl_tpu_torch.ops.ring_write import ring_write, ring_write_where
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice
 from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
@@ -324,8 +326,20 @@ def test_frame_ring_path_raises():
     assert agent._frame_path and not _online_agent()._frame_path
     with pytest.raises(ValueError, match="deferred"):
         agent.observe_deferred(None, None, None)
-    with pytest.raises(NotImplementedError, match="conv1_cache"):
-        CNNQValueNetwork(time_major_stack=True, conv1_cache=True)
+    # The two opt-in act paths construct on the frame path; a configuration
+    # they do not take is a ValueError at construction.
+    for option in ("conv1_cache", "ring_conv"):
+        net = CNNQValueNetwork(input_shape=(20, 20, 4), time_major_stack=True, **{option: True})
+        opted = PearlAgent(
+            policy_learner=DeepQLearning(q_network=net, history_summarizer=summ),
+            replay_buffer=visual,
+        )
+        assert opted._frame_path and (opted._cache_net is net) == (option == "conv1_cache")
+        with pytest.raises(ValueError, match=option):
+            CNNQValueNetwork(
+                input_shape=(20, 20, 16), time_major_stack=True, frame_channels=4, **{option: True}
+            )
+    assert agent._cache_net is None
 
     @dataclasses.dataclass(frozen=True)
     class FrameRing:
@@ -501,12 +515,11 @@ def test_visual_agent_acts_observes_and_learns_like_the_jax_agent(
         )
 
 
-def test_visual_runner_runs_on_cpu_at_a_tiny_size():
-    num_envs, spl, lpc = 8, 4, 3
+def _tiny_visual_agent(num_envs, **net_options):
     agent = PearlAgent(
         policy_learner=DeepQLearning(
             q_network=CNNQValueNetwork(
-                input_shape=(20, 20, 4), time_major_stack=True, hidden_dims=(16,)
+                input_shape=(20, 20, 4), time_major_stack=True, hidden_dims=(16,), **net_options
             ),
             training_rounds=1, batch_size=16, act_dtype="bfloat16",
             history_summarizer=FrameRingHistorySummarization(history_length=4, dtype=torch.bfloat16),
@@ -517,12 +530,17 @@ def test_visual_runner_runs_on_cpu_at_a_tiny_size():
         ),
     )
     env = SyntheticAtari(height=20, width=20, frames=1, obs_dtype=torch.bfloat16, episode_len=5)
+    return agent, env
+
+
+def _drive_tiny_visual_runner(agent, env, num_envs, spl=4, lpc=3):
+    """Two runner calls on the CPU; returns the final agent state."""
     init_fn, run_fn = make_compiled_runner(
         agent, env, num_envs=num_envs, steps_per_learn=spl, learns_per_call=lpc, device="cpu"
     )
     astate, env_states = init_fn(0)
     gen = make_generator(0, CPU)
-    wrappers = (ring_write, ring_write_where, copy_fence, masked_scale_fence4)
+    wrappers = (ring_write, ring_write_where, copy_fence, masked_scale_fence4, cache_write, ring_conv1)
     before = [w.launches for w in wrappers]
     for call in range(2):
         astate, env_states, stats = run_fn(astate, env_states, gen)
@@ -537,6 +555,14 @@ def test_visual_runner_runs_on_cpu_at_a_tiny_size():
     assert view.cursor == (1 + steps) % 4 and view.ring.dtype == torch.bfloat16
     assert view.valid.sum(1).tolist() == [4] * num_envs  # 5 frames into the episode
     assert all(torch.isfinite(p).all() for p in astate.learner.params.parameters())
+    return astate
+
+
+def test_visual_runner_runs_on_cpu_at_a_tiny_size():
+    num_envs = 8
+    agent, env = _tiny_visual_agent(num_envs)
+    astate = _drive_tiny_visual_runner(agent, env, num_envs)
+    assert astate.history_carry.cache is None
 
     res = online_learning(
         agent, env, num_envs=num_envs, max_steps=20 * num_envs, learn_every_k_steps=2,
@@ -546,6 +572,56 @@ def test_visual_runner_runs_on_cpu_at_a_tiny_size():
     assert res.agent_state.replay.push_count == 20
     with pytest.raises(ValueError, match="min_pushes_before_sample"):
         online_learning(agent, env, num_envs=num_envs, max_steps=64, device="cpu")
+
+
+@pytest.mark.parametrize("option", ["conv1_cache", "ring_conv"])
+def test_visual_runner_opt_in_act_paths_run_on_cpu_at_a_tiny_size(option, monkeypatch):
+    # The same tiny runner with each opt-in act path of the network; the
+    # branch's entry function is counted on its way through.
+    import pearl_tpu_torch.neural_networks.q_value_networks as qvn
+
+    name = {"conv1_cache": "gather_sum", "ring_conv": "ring_conv1"}[option]
+    calls, real = [], getattr(qvn, name)
+    monkeypatch.setattr(qvn, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    num_envs = 8
+    agent, env = _tiny_visual_agent(num_envs, **{option: True})
+    astate = _drive_tiny_visual_runner(agent, env, num_envs)
+    assert len(calls) == 2 * 4 * 3  # once per env step: the act path only
+    view = astate.history_carry
+    net = agent.policy_learner.q_network
+    if option == "conv1_cache":
+        assert view.cache.shape == (4, 4, num_envs, 16 * 4 * 4) and view.cache.dtype == torch.bfloat16
+        # The runner's last act was a learn: the cache holds the new weights.
+        scratch = net.refresh_cache(astate.learner.params, dataclasses.replace(view, cache=None))
+        assert torch.equal(view.cache, scratch)
+    else:
+        assert view.cache is None
+    # The opt-in Q agrees with the default branch on the final state
+    # (bfloat16 forward, |Q| under 1: 3e-2).
+    bound = agent.for_env(env)
+    with torch.no_grad():
+        q = bound.policy_learner._scores(astate.learner, bound.subjective_state(astate), None)
+        plain = dataclasses.replace(net, conv1_cache=False, ring_conv=False)
+        q_default = plain.q_all(
+            bound.policy_learner._act_module(astate.learner),
+            dataclasses.replace(view, cache=None), None,
+        ).float()
+    assert len(calls) == 2 * 4 * 3 + 1 and q_default.abs().max() < 1.0
+    torch.testing.assert_close(q, q_default, rtol=0, atol=3e-2)
+
+    # `online_learning` drives the same path, and resumes on fresh envs with
+    # a cache seeded from the learned weights.
+    res = online_learning(
+        agent, env, num_envs=num_envs, max_steps=20 * num_envs, learn_every_k_steps=2,
+        seed=1, device="cpu",
+    )
+    assert res.total_steps == 20 * num_envs and res.agent_state.replay.push_count == 20
+    again = online_learning(
+        agent, env, num_envs=num_envs, max_steps=2 * num_envs, exploit=True, learn=False,
+        agent_state=res.agent_state, seed=2, device="cpu",
+    )
+    assert again.total_steps == 2 * num_envs
+    assert (again.agent_state.history_carry.cache is not None) == (option == "conv1_cache")
 
 
 def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
