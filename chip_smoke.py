@@ -8,12 +8,16 @@ Phases, each printing its seconds:
   2. build: compiles every kernel of the port from `pearl_tpu_torch/csrc`
      (one nvcc per source, all at once);
   3. kernels: holds each kernel against its plain PyTorch version on the card
-     at the shapes the main paths give it (and at ragged ones), and times
-     kernel, plain version and, where one PyTorch call computes the same
-     function, that call, with CUDA events;
+     at the shapes the main paths give it (and at ragged ones), every body of
+     `fused_mlp` (rows, tiled, general) and of `ring_conv1` (mma, general)
+     at shapes it takes, each C entry's choice of body against its Python
+     mirror; times kernel, plain version and, where one PyTorch call computes
+     the same function, that call, with CUDA events, beside an empty kernel
+     launch and a probe of the card's float32 FMA rate;
   4. runner: drives `make_compiled_runner` at the full width of the DQN
      CartPole workload (131072 envs) and checks that every Q evaluation went
-     through the kernel;
+     through the kernel, the act launches through the tiled body and the
+     learn launches through the rows body;
   5. learning: `online_learning` must reach CartPole return 500;
   6. visual runner: drives `make_compiled_runner` at the full width of the
      CNN-DQN workload (1024 envs, 84x84 frames, a window of 4, bfloat16 ring
@@ -23,7 +27,8 @@ Phases, each printing its seconds:
      frames (a 231 MB ring), the path of `masked_scale_fence`; then the two
      opt-in act paths of the 1-channel composition, each at full width: the
      conv1 cache (`conv1_cache=True`, the path of `cache_write`) and the ring
-     conv (`ring_conv=True`, the path of `ring_conv1`).
+     conv (`ring_conv=True`, the path of `ring_conv1`, every launch in the
+     tensor-core body).
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -47,7 +52,16 @@ BF16_FLOP_PER_S = 989e12
 
 ACT_SHAPE = (131_072, (4, 64, 64, 2))
 LEARN_SHAPE = (1_024, (4, 64, 64, 2))
-CHECK_SHAPES = [ACT_SHAPE, LEARN_SHAPE, (1_031, (5, 32, 48, 16, 3)), (37, (4, 64, 64, 2))]
+WIDE_DIMS = (7, 96, 130, 5)  # a layer wider than the tiled body takes
+CHECK_SHAPES = [
+    ACT_SHAPE, LEARN_SHAPE, (1_031, (5, 32, 48, 16, 3)), (37, (4, 64, 64, 2)),
+    # A B that is no multiple of the tiled body's 128 rows, column tiles of
+    # 8, 16 and 4 in one chain, and the wide chain in the rows and the
+    # general body. `check_fused_mlp` adds the two B around the switch from
+    # the rows body to the others, which depends on the card's SM count.
+    (20_011, (4, 64, 64, 2)), (9_001, (5, 32, 48, 16, 3)), (300, WIDE_DIMS),
+    (9_001, WIDE_DIMS),
+]
 
 
 def phase(name, t0):
@@ -107,41 +121,88 @@ def mlp_bound_ms(B, dims):
 
 
 def check_fused_mlp(card):
+    """B1 against its plain version at every checked shape, each body at
+    least at two; the C entry's choice of body against its Python mirror;
+    then the act and the learn shape timed, beside an empty kernel launch."""
+    import importlib
+
     from pearl_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
 
+    # The module: the package's attribute of that name is the function.
+    fm = importlib.import_module("pearl_tpu_torch.ops.fused_mlp")
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    optin = getattr(props, "shared_memory_per_block_optin", fm.H100_SMEM_OPTIN)
+    switch = fm.ROWS_PER_SM * sms
+    shapes = CHECK_SHAPES + [(switch, ACT_SHAPE[1]), (switch + 1, ACT_SHAPE[1]),
+                             (switch + 1, WIDE_DIMS)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     timing = {}
-    for B, dims in CHECK_SHAPES:
+    seen = set()
+    for B, dims in shapes:
+        body = fm.pick_body(B, dims, sms, optin)
+        assert body == fm.kernel_pick(B, dims, sms, optin), (B, dims, body)
+        seen.add(body)
         x, wb = mlp_operands(B, dims, gen)
+        before = dict(fused_mlp.launches_by_body)
         y = fused_mlp(x, *wb)
         torch.cuda.synchronize()
+        after = fused_mlp.launches_by_body
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == body) for k in after}, (B, dims, body, before, after)
         ref = fused_mlp_reference(x, wb)
         # f32 both ways; the sums run in another order: rtol/atol 1e-5.
         torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
         err = (y - ref).abs().max().item()
         max_err = max(max_err, err)
 
-        leaves = [t.clone().requires_grad_() for t in (x, *wb)]
-        (fused_mlp(*leaves) ** 2).sum().backward()
-        ref_leaves = [t.clone().requires_grad_() for t in (x, *wb)]
-        (fused_mlp_reference(ref_leaves[0], ref_leaves[1:]) ** 2).sum().backward()
-        torch.cuda.synchronize()
-        for a, b in zip(leaves, ref_leaves):
-            # Gradients of sum(y^2) scale with the forward difference: 1e-4.
-            torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)
-        print(f"fused_mlp B={B} dims={dims}: max_abs_err={err:.3e} forward+grads ok", flush=True)
+        # The backward pass is the plain chain on both sides; only its seed 2y
+        # differs. A weight gradient is a sum over the B rows of terms of both
+        # signs, so at a large B the forward's last-bit differences add up to
+        # more than 1e-4 of a cancelling sum: the new large shapes hold the
+        # forward alone, the two main-path shapes keep their gradient check.
+        grads = (B, dims) in (ACT_SHAPE, LEARN_SHAPE) or B <= 2048
+        if grads:
+            leaves = [t.clone().requires_grad_() for t in (x, *wb)]
+            (fused_mlp(*leaves) ** 2).sum().backward()
+            ref_leaves = [t.clone().requires_grad_() for t in (x, *wb)]
+            (fused_mlp_reference(ref_leaves[0], ref_leaves[1:]) ** 2).sum().backward()
+            torch.cuda.synchronize()
+            for a, b in zip(leaves, ref_leaves):
+                # Gradients of sum(y^2) scale with the forward difference: 1e-4.
+                torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)
+        print(f"fused_mlp B={B} dims={dims} body={body}: max_abs_err={err:.3e} "
+              f"forward{'+grads' if grads else ''} ok", flush=True)
 
         if (B, dims) in (ACT_SHAPE, LEARN_SHAPE):
             ms = device_ms(lambda: fused_mlp(x, *wb))
             plain_ms = device_ms(lambda: fused_mlp_reference(x, wb))
             bound_ms, bound_by = mlp_bound_ms(B, dims)
-            timing[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            timing[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             body=body)
             print(
-                f"fused_mlp B={B} dims={dims}: kernel {ms:.4f} ms, plain version "
+                f"fused_mlp B={B} dims={dims} body={body}: kernel {ms:.4f} ms, plain version "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}",
                 flush=True,
             )
+    assert seen == set(fm.BODIES), seen
+    assert timing[ACT_SHAPE[0]]["body"] == "tiled" and timing[LEARN_SHAPE[0]]["body"] == "rows"
+    empty_ms = device_ms(fm.empty_launch)
+    timing[LEARN_SHAPE[0]]["empty_launch_ms"] = empty_ms
+    print(f"an empty kernel launch: {empty_ms:.4f} ms on {card} (the floor under the learn "
+          f"shape's time, which its operation bound cannot say)", flush=True)
+    # What the FMA pipes give at best, at about the act shape's work (two
+    # blocks an SM, 1.1 GFLOP) and at eight times that.
+    probe_out = torch.empty(2 * sms * 128, device="cuda")
+    for iters in (128, 1024):
+        flop = fm.fma_probe(probe_out, 2 * sms, iters)
+        probe_ms = device_ms(lambda: fm.fma_probe(probe_out, 2 * sms, iters))
+        rate = flop / (probe_ms - empty_ms) / 1e9
+        timing[ACT_SHAPE[0]][f"fma_probe_{iters}_tflops"] = rate
+        print(f"FMA probe, {flop / 1e9:.2f} GFLOP in registers: {probe_ms:.4f} ms, "
+              f"{rate:.1f} TFLOP/s net of an empty launch (published peak "
+              f"{FP32_FLOP_PER_S / 1e12:.0f}) on {card}", flush=True)
     return max_err, timing
 
 
@@ -176,6 +237,7 @@ def run_runner(card):
     torch.cuda.reset_peak_memory_stats()
 
     fused_mlp.launches = 0
+    fused_mlp.launches_by_body = dict.fromkeys(fused_mlp.launches_by_body, 0)
     t0 = time.perf_counter()
     astate, env_states, stats = run_fn(astate, env_states, gen)  # warm-up
     torch.cuda.synchronize()
@@ -188,6 +250,13 @@ def run_runner(card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = fused_mlp.launches
+    # Every act launch (B = 131072) took the tiled body, every learn launch
+    # (B = 1024) the rows body; none the first design's.
+    by_body = dict(fused_mlp.launches_by_body)
+    assert by_body == {
+        "tiled": steps_per_call * (calls + 1), "rows": learns_per_call * rounds * 2 * (calls + 1),
+        "general": 0,
+    }, by_body
 
     reward_sum, episodes = stats["reward_sum"].item(), stats["episodes"].item()
     assert math.isfinite(reward_sum) and reward_sum == steps_per_call * num_envs, reward_sum
@@ -200,13 +269,13 @@ def run_runner(card):
     sps = calls * steps_per_call * num_envs / elapsed
     print(
         f"runner: {sps:.1f} env-steps/s over {calls} calls ({elapsed:.3f} s), "
-        f"{launches} fused_mlp launches ({per_call} per call), last call "
+        f"{launches} fused_mlp launches ({per_call} per call, by body {by_body}), last call "
         f"reward_sum={reward_sum:.0f} episodes={episodes}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
         flush=True,
     )
     profile_call(run_fn, astate, env_states, gen, elapsed / calls)
-    return launches
+    return launches, by_body
 
 
 def profile_call(run_fn, astate, env_states, gen, wall_s):
@@ -237,7 +306,10 @@ def profile_call(run_fn, astate, env_states, gen, wall_s):
         f"idle share {1 - busy_s / wall_s:.4f}",
         flush=True,
     )
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # The twelve largest, and the port's own two redesigned kernels wherever they rank.
+    shown = ranked[:12] + [kv for kv in ranked[12:] if "fused_mlp" in kv[0] or "ring_conv1" in kv[0]]
+    for name, us in shown:
         print(f"profile:   {us / 1e3:10.3f} ms  {100 * us / 1e6 / busy_s:5.1f}%  {name[:90]}")
 
 
@@ -480,6 +552,11 @@ CACHE_RAGGED = [(37, 3, 16, 4, 4), (5, 4, 3, 5, 5), (1, 1, 16, 4, 4), (37, 2, 1,
 CONV_SMALL = [
     (37, 4, 20, 20, 8, 4, 16), (37, 3, 28, 28, 8, 4, 8), (1, 1, 20, 20, 4, 4, 16),
     (5, 2, 28, 28, 4, 2, 32), (3, 4, 21, 19, 5, 3, 4),
+    # More for the tensor-core body (bfloat16): one env at the bench geometry,
+    # two blocks of 8 kx (k = 16) to 32 channels, a frame that is not square,
+    # and more envs than resident blocks with one stage to spare.
+    (1, 4, 84, 84, 8, 4, 16), (5, 2, 36, 36, 16, 4, 32), (9, 3, 32, 28, 8, 4, 8),
+    (700, 2, 84, 84, 8, 4, 16),
 ]
 
 
@@ -492,6 +569,7 @@ def check_act_kernels(card):
 
     from pearl_tpu_torch.ops.conv_cache import cache_write, cache_write_reference, gather_sum
     from pearl_tpu_torch.ops.layout_fence import masked_scale_fence4
+    from pearl_tpu_torch.ops import ring_conv as rc
     from pearl_tpu_torch.ops.ring_conv import ring_conv1, ring_conv1_reference
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -535,24 +613,52 @@ def check_act_kernels(card):
         bias = torch.randn((OC,), device="cuda", generator=gen) * 0.1
         return ring, valid, wmat, bias
 
+    def hold(ring, valid, wmat, bias, H, W, k, s, body):
+        """One launch against the plain version; the body it took."""
+        B, T, OC, dtype = ring.shape[0], ring.shape[1], wmat.shape[1], ring.dtype
+        before = (ring_conv1.launches, ring_conv1.mma_launches)
+        got = ring_conv1(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
+        torch.cuda.synchronize()
+        assert (ring_conv1.launches, ring_conv1.mma_launches) == (
+            before[0] + 1, before[1] + (body == "mma")), (ring.shape, dtype, body)
+        want = ring_conv1_reference(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
+        OH, OW = (H - k) // s + 1, (W - k) // s + 1
+        assert got.shape == want.shape == (B, OC, OH, OW) and got.dtype == dtype
+        assert got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
+        err["ring_conv1"] = max(err["ring_conv1"], (got.float() - want.float()).abs().max().item())
+        return got
+
+    bodies = {dtype: [] for dtype in tol}
     for dtype in (torch.float32, torch.bfloat16):
         for B, T, H, W, k, s, OC in [bench5] + CONV_SMALL:
+            body = rc.pick_body(dtype, T, H, W, k, s, OC)
+            assert body == rc.kernel_pick(dtype, T, H, W, k, s, OC), (dtype, T, H, W, k, s, OC)
+            bodies[dtype].append(body)
             ring, valid, wmat, bias = conv_operands(B, T, H, W, k, s, OC, dtype)
-            got = ring_conv1(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
-            torch.cuda.synchronize()
-            want = ring_conv1_reference(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
-            OH, OW = (H - k) // s + 1, (W - k) // s + 1
-            assert got.shape == want.shape == (B, OC, OH, OW) and got.dtype == dtype
-            assert got.is_contiguous()
-            torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
+            got = hold(ring, valid, wmat, bias, H, W, k, s, body)
             # Not trivially: about half the sums are positive before the relu,
             # and the env with no valid frame holds relu(bias) alone.
             assert 0.2 < (got[1:] > 0).float().mean().item() < 0.8 or B == 1
             assert torch.equal(got[0].float().amax((1, 2)), torch.relu(bias).to(dtype).float())
-            err["ring_conv1"] = max(err["ring_conv1"], (got.float() - want.float()).abs().max().item())
+            # wmat as the network hands it over: rolled by a cursor along the
+            # frame axis (a copy of a rolled view), and every frame valid.
+            rolled = torch.roll(wmat.view(T, k * k, OC), 1, 0).reshape(T * k * k, OC)
+            hold(ring, torch.ones_like(valid), rolled, bias, H, W, k, s, body)
+            if B > 1:
+                # A ring whose base is not 16-byte aligned: a view from the second
+                # env of a float32 ring starts 4 bytes off only when a frame is odd;
+                # from inside a wider buffer it starts 2 or 4 bytes off always.
+                flat = torch.empty(ring.numel() + 1, dtype=dtype, device="cuda")
+                off = flat[1:].view(ring.shape).copy_(ring)
+                assert off.data_ptr() % 16 != 0 and off.is_contiguous()
+                hold(off, valid, wmat, bias, H, W, k, s, "general")
         print(f"ring_conv1 {dtype}: within rtol {tol[dtype]['rtol']:.3e} atol "
-              f"{tol[dtype]['atol']:.0e} of the plain version at {1 + len(CONV_SMALL)} shapes, "
-              f"max abs err so far {err['ring_conv1']:.3e}", flush=True)
+              f"{tol[dtype]['atol']:.0e} of the plain version at {1 + len(CONV_SMALL)} shapes "
+              f"(bodies {bodies[dtype]}; a rolled wmat with every frame valid and an unaligned "
+              f"ring at each), max abs err so far {err['ring_conv1']:.3e}", flush=True)
+    assert set(bodies[torch.float32]) == {"general"}
+    assert bodies[torch.bfloat16].count("mma") == 7 and bodies[torch.bfloat16][0] == "mma"
 
     # Timing at the shapes of the main paths, operands cold in the L2 cache.
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -582,14 +688,16 @@ def check_act_kernels(card):
     valid4 = torch.rand((B, T), device="cuda", generator=gen) < 0.7
     gather_ms = ms(lambda: gather_sum(cache, valid4, c))
 
-    ring, valid, wmat, bias = conv_operands(*bench5, bf16)
+    ring, valid, wmat32, bias = conv_operands(*bench5, bf16)
+    # The weights as the network hands them over: in the ring's dtype.
+    wmat = wmat32.to(bf16)
     n_valid = int(valid.sum().item())
     # This run's data: only valid frames are read and multiplied.
-    conv_bytes = (n_valid * VIS_F * 2 + valid.numel() + wmat.numel() * 4 + bias.numel() * 4
+    conv_bytes = (n_valid * VIS_F * 2 + valid.numel() + wmat.numel() * 2 + bias.numel() * 4
                   + B * OC * OH * OW * 2)
     conv_flops = 2 * n_valid * OH * OW * OC * VIS_K * VIS_K
     t_bytes, t_ops = conv_bytes / HBM_BYTES_PER_S, conv_flops / BF16_FLOP_PER_S
-    w4 = (wmat * 255.0).to(bf16).reshape(T, VIS_K, VIS_K, OC).permute(3, 0, 1, 2).contiguous()
+    w4 = (wmat32 * 255.0).to(bf16).reshape(T, VIS_K, VIS_K, OC).permute(3, 0, 1, 2).contiguous()
     b16 = bias.to(bf16)
 
     def replaced():
@@ -605,10 +713,18 @@ def check_act_kernels(card):
         max_abs_err=err["ring_conv1"],
         fence4_conv2d_relu_ms=ms(replaced),
         valid_frames=n_valid,
+        body=rc.pick_body(bf16, *bench5[1:]),
+    )
+    # Every frame valid, as on the runner's path after its first steps.
+    all_valid = torch.ones_like(valid)
+    full_bytes = conv_bytes + (valid.numel() - n_valid) * VIS_F * 2
+    timing["ring_conv1"]["all_valid"] = dict(
+        ms=ms(lambda: ring_conv1(ring, all_valid, wmat, bias, H=VIS_H, W=VIS_W, k=VIS_K, s=VIS_S)),
+        bound_ms=bytes_bound_ms(full_bytes), bound_by="bytes",
     )
     # The same kernel on a float32 ring, bound by its float32 operations.
-    ring32 = ring.float()
-    f32_bytes = conv_bytes + n_valid * VIS_F * 2 + B * OC * OH * OW * 2
+    ring32, wmat = ring.float(), wmat32
+    f32_bytes = conv_bytes + n_valid * VIS_F * 2 + wmat.numel() * 2 + B * OC * OH * OW * 2
     t_bytes, t_ops = f32_bytes / HBM_BYTES_PER_S, conv_flops / FP32_FLOP_PER_S
     timing["ring_conv1"]["float32_shape"] = dict(
         ms=ms(lambda: ring_conv1(ring32, valid, wmat, bias, H=VIS_H, W=VIS_W, k=VIS_K, s=VIS_S)),
@@ -622,14 +738,16 @@ def check_act_kernels(card):
     print(f"gather_sum (plain PyTorch, no kernel) cache ({T}, {T}, {B}, {D}) bfloat16: "
           f"{gather_ms:.4f} ms on {card}", flush=True)
     t = timing["ring_conv1"]
-    print(f"ring_conv1 B={B} T={T} {VIS_H}x{VIS_W} k={VIS_K} s={VIS_S} OC={OC} bfloat16, "
-          f"{n_valid} of {B * T} frames valid: kernel {t['ms']:.4f} ms, plain version "
+    print(f"ring_conv1 B={B} T={T} {VIS_H}x{VIS_W} k={VIS_K} s={VIS_S} OC={OC} bfloat16 "
+          f"(body {t['body']}), {n_valid} of {B * T} frames valid: kernel {t['ms']:.4f} ms, plain version "
           f"{t['plain_ms']:.4f} ms, library call none, bound {t['bound_ms']:.4f} ms "
           f"({t['bound_by']}); what it replaces on the act path (masked_scale_fence4 + "
           f"F.conv2d with bias + relu, bfloat16) {t['fence4_conv2d_relu_ms']:.4f} ms on {card}",
           flush=True)
+    print(f"ring_conv1 the same shape, every frame valid: kernel {t['all_valid']['ms']:.4f} ms, "
+          f"bound {t['all_valid']['bound_ms']:.4f} ms (bytes) on {card}", flush=True)
     t = t["float32_shape"]
-    print(f"ring_conv1 the same shape float32: kernel {t['ms']:.4f} ms, bound "
+    print(f"ring_conv1 the same shape float32 (general body): kernel {t['ms']:.4f} ms, bound "
           f"{t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}", flush=True)
     return timing
 
@@ -802,6 +920,7 @@ def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
         per_call["ring_conv1"] = steps_per_call
     for fn in wrappers.values():
         fn.launches = 0
+    wrappers["ring_conv1"].mma_launches = 0
     torch.cuda.reset_peak_memory_stats()
 
     def counts():
@@ -826,6 +945,9 @@ def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = counts()
+    # Every launch of the ring conv took the tensor-core body.
+    assert wrappers["ring_conv1"].mma_launches == launches["ring_conv1"], (
+        wrappers["ring_conv1"].mma_launches, launches["ring_conv1"])
 
     reward_sum, episodes = stats["reward_sum"].item(), stats["episodes"].item()
     assert math.isfinite(reward_sum) and 0 <= reward_sum <= steps_per_call * num_envs, reward_sum
@@ -847,6 +969,24 @@ def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
         astate, env_states = check_incremental_cache(agent, env, astate, env_states, gen, num_envs)
     profile_call(run_fn, astate, env_states, gen, elapsed / calls)
     return launches, sps
+
+
+def print_kernel_resources(build_dir):
+    """Registers and spills of the redesigned kernels, as ptxas reported them
+    at this build (the build keeps its output beside each library)."""
+    import re
+
+    wanted = ("fused_mlp_tiled_kernel", "fused_mlp_rows_kernel", "fused_mlp_general_kernel",
+              "ring_conv1_mma_kernel")
+    for report in sorted(build_dir.glob("*.ptxas.txt")):
+        blocks = re.split(r"ptxas info\s*: Compiling entry function '", report.read_text())
+        for block in blocks[1:]:
+            symbol = block.split("'", 1)[0]
+            used = re.search(r"Used (\d+) registers", block)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            if used and any(w in symbol for w in wanted):
+                print(f"ptxas: {symbol}: {used.group(1)} registers, spill stores/loads "
+                      f"{spills.group(1)}/{spills.group(2)} bytes", flush=True)
 
 
 REPLACES = {
@@ -884,6 +1024,7 @@ def main() -> int:
     sources = ["fused_mlp", "ring_write", "layout_fence", "conv_cache", "ring_conv"]
     for name, path in _build.build_all(sources).items():
         print(f"built {name}: {path}", flush=True)
+    print_kernel_resources(_build.BUILD_DIR)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -893,7 +1034,7 @@ def main() -> int:
     phase("kernels", t0)
 
     t0 = time.perf_counter()
-    launches = run_runner(card)
+    launches, fused_by_body = run_runner(card)
     phase("runner", t0)
 
     t0 = time.perf_counter()
@@ -917,7 +1058,7 @@ def main() -> int:
     assert visual_launches["cache_write"] == 0 == visual_launches["ring_conv1"]
     assert cached["ring_conv1"] == 0 == fused["cache_write"]
     visual_launches["cache_write"] = cached["cache_write"]
-    visual_launches["ring_conv1"] = fused["ring_conv1"]
+    visual_launches["ring_conv1"] = fused_mma_launches = fused["ring_conv1"]
     print(
         f"1-channel visual runner, env-steps/s side by side, in the order run: default "
         f"{sps_default:.1f}, conv1_cache {sps_cached:.1f}, ring_conv {sps_fused:.1f}, default "
@@ -937,6 +1078,9 @@ def main() -> int:
         "bound_ms": act["bound_ms"],
         "bound_by": act["bound_by"],
         "library_ms": None,
+        "body": act["body"],
+        "launches_by_body": fused_by_body,
+        "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],
         "learn_shape": timing[LEARN_SHAPE[0]],
     }]
     for name, t in visual_timing.items():
@@ -948,6 +1092,8 @@ def main() -> int:
             "launches": visual_launches[name],
             **t,
         })
+    assert kernels[-1]["name"] == "ring_conv1"
+    kernels[-1]["mma_launches"] = fused_mma_launches
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     print(json.dumps({"kernels": kernels}))

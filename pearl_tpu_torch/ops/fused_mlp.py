@@ -10,17 +10,31 @@ takes — and every b is (out,).
 What bounds it on an H100 at the DQN act shape (B = 131072, 4 -> 64 -> 64 ->
 2): x plus the output is 3 MB, about 1 us at 3.35 TB/s, but the chain is
 2*B*(4*64 + 64*64 + 64*2) ~= 1.17 GFLOP of float32 on the CUDA cores (~17 us
-at 67 TFLOP/s), so it is bound by operations. The kernel keeps each row's
-activations on chip for the whole chain (never written to device memory),
-stages the weights once per persistent block in shared memory, and feeds 8
-fma chains per thread from broadcast float4 weight loads; `csrc/fused_mlp.cu`
-has the design in full.
+at 67 TFLOP/s), so it is bound by operations: by the FMA pipe's instruction
+slots and the shared-memory loads that feed them. At the learn shape (B =
+1024) the time is latency: how many SMs take part and how long one row's
+chain is. The source has three bodies, and its C entry picks one (`pick_body`
+mirrors the choice here, so that it can be tested without a card):
+
+  rows     B <= 32 * SMs, any widths: a warp carries two rows, the 16 lanes
+           of a row split its outputs, the weights are copied to shared
+           memory in one trip (or read from L1/L2 when they do not fit);
+  tiled    larger B, every width after the first <= 64: a thread holds an
+           8-row by 16-column register tile (6 shared-memory loads per 128
+           FMAs), the activation tile is one buffer rewritten in place, two
+           persistent blocks of 4 warps and 256 rows an SM;
+  general  larger B with a wider layer: one thread per row, 8 outputs at a
+           time (the first design).
+
+All keep each row's activations on chip for the whole chain;
+`csrc/fused_mlp.cu` has the designs in full.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 `fused_mlp_reference`, the plain PyTorch chain. Nothing falls back. The
 backward pass recomputes through the plain chain, as the reference's
 `_fused_bwd` does (the TPU kernel had no backward kernel, so none is written).
-`fused_mlp.launches` counts kernel launches and nothing else.
+`fused_mlp.launches` counts kernel launches and nothing else;
+`fused_mlp.launches_by_body` splits the same count by the body launched.
 """
 
 from __future__ import annotations
@@ -34,6 +48,59 @@ import torch.nn.functional as F
 
 MAX_LAYERS = 8
 MAX_WIDTH = 256
+# The bodies of `csrc/fused_mlp.cu`, by the number its entry point reports.
+BODIES = ("rows", "tiled", "general")
+ROWS_PER_SM = 32  # the rows body takes B <= ROWS_PER_SM * SMs
+TILE_ROWS = 256  # rows per tile of the tiled body
+TILE_MAX_WIDTH = 64  # its widest layer output
+H100_SMS = 132
+H100_SMEM_OPTIN = 232448  # bytes of shared memory a block may use
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _tile_stride(dout: int) -> int:
+    """Stride of a staged weight row in the tiled body: `dout` rounded up to
+    whole column tiles of 16, 8 or 4 (by the layer's width)."""
+    dp = _pad4(dout)
+    ct = 16 if dp > 32 else 8 if dp > 16 else 4
+    return -(-dout // ct) * ct
+
+
+def _tiled_smem_bytes(dims: Sequence[int]) -> int:
+    weights = sum((i + 1) * _tile_stride(o) for i, o in zip(dims[:-1], dims[1:]))
+    return 4 * (weights + max(dims[:-1]) * TILE_ROWS)
+
+
+def _general_smem_bytes(dims: Sequence[int], rows: int) -> int:
+    weights = sum(i * _pad4(o) + _pad4(o) for i, o in zip(dims[:-1], dims[1:]))
+    return 4 * (weights + 2 * max(dims[:-1]) * (rows + 1))
+
+
+def pick_body(
+    B: int, dims: Sequence[int], sms: int = H100_SMS, smem_optin: int = H100_SMEM_OPTIN
+) -> str:
+    """The body `fused_mlp_forward` launches for B rows of a chain of widths
+    `dims` on a card with `sms` SMs and `smem_optin` bytes of shared memory a
+    block: the mirror of `mlp_pick_body` in `csrc/fused_mlp.cu`. Raises
+    ValueError for a chain the kernel does not take."""
+    n_layers = len(dims) - 1
+    if not 1 <= n_layers <= MAX_LAYERS or min(dims) < 1 or max(dims) > MAX_WIDTH:
+        raise ValueError(
+            f"fused_mlp kernel takes 1 to {MAX_LAYERS} layers of width 1 to "
+            f"{MAX_WIDTH}; got widths {tuple(dims)}"
+        )
+    if B <= ROWS_PER_SM * sms:
+        return "rows"
+    if max(dims[1:]) <= TILE_MAX_WIDTH and _tiled_smem_bytes(dims) <= smem_optin:
+        return "tiled"
+    if _general_smem_bytes(dims, 32) <= smem_optin:
+        return "general"
+    raise ValueError(
+        f"fused_mlp kernel: widths {tuple(dims)} do not fit one block's shared memory"
+    )
 
 
 def fused_mlp_reference(x: torch.Tensor, wb: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -81,9 +148,19 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.fused_mlp_forward.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     lib.fused_mlp_forward.restype = ctypes.c_int
+    lib.fused_mlp_pick.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+    ]
+    lib.fused_mlp_pick.restype = ctypes.c_int
+    lib.fused_mlp_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.fused_mlp_empty_launch.restype = ctypes.c_int
+    lib.fused_mlp_fma_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.fused_mlp_fma_probe.restype = ctypes.c_int
     return lib
 
 
@@ -100,12 +177,14 @@ def _launch(x: torch.Tensor, wb: Sequence[torch.Tensor], dims: Tuple[int, ...]) 
         return out
     lib = _kernel_lib()
     c_dims = (ctypes.c_int * len(dims))(*dims)
+    picked = ctypes.c_int(-1)
     c_w = (ctypes.c_void_p * n_layers)(*(wb[2 * i].data_ptr() for i in range(n_layers)))
     c_b = (ctypes.c_void_p * n_layers)(*(wb[2 * i + 1].data_ptr() for i in range(n_layers)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_mlp_forward(
-            x.data_ptr(), out.data_ptr(), B, n_layers, c_dims, c_w, c_b, stream
+            x.data_ptr(), out.data_ptr(), B, n_layers, c_dims, c_w, c_b, stream,
+            ctypes.byref(picked),
         )
     if err == -1:
         raise ValueError(
@@ -114,7 +193,18 @@ def _launch(x: torch.Tensor, wb: Sequence[torch.Tensor], dims: Tuple[int, ...]) 
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
     fused_mlp.launches += 1
+    fused_mlp.launches_by_body[BODIES[picked.value]] += 1
     return out
+
+
+def kernel_pick(B: int, dims: Sequence[int], sms: int, smem_optin: int) -> str:
+    """What the built library's own `mlp_pick_body` answers (needs the built
+    kernel, so a card's machine): held against `pick_body` on the card."""
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    body = _kernel_lib().fused_mlp_pick(B, len(dims) - 1, c_dims, sms, smem_optin)
+    if body < 0:
+        raise ValueError(f"fused_mlp kernel takes no chain of widths {tuple(dims)} at B={B}")
+    return BODIES[body]
 
 
 class _FusedMLP(torch.autograd.Function):
@@ -148,7 +238,33 @@ def fused_mlp(x: torch.Tensor, *wb: torch.Tensor) -> torch.Tensor:
     return _FusedMLP.apply(x, *wb)
 
 
+def empty_launch() -> None:
+    """Launch the library's empty kernel on the current stream: timed on the
+    card, it is the floor under the time of any kernel on a small batch.
+    Counts as no launch of `fused_mlp`."""
+    err = _kernel_lib().fused_mlp_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+
+def fma_probe(out: torch.Tensor, blocks: int, iters: int) -> float:
+    """Launch the library's FMA probe (128 independent float32 accumulators a
+    thread, operands in registers) with `blocks` blocks of 128 threads and
+    `iters` trips; `out` holds blocks * 128 float32 on the card. Returns the
+    floating-point operations of the launch. Timed on the card, it is what
+    the FMA pipes give the tiled body at best. Counts as no launch of
+    `fused_mlp`."""
+    if not out.is_cuda or out.dtype != torch.float32 or out.numel() < blocks * 128:
+        raise ValueError("fma_probe: out must hold blocks * 128 float32 on the card")
+    err = _kernel_lib().fused_mlp_fma_probe(
+        out.data_ptr(), blocks, iters, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"FMA probe launch failed: CUDA error {err}")
+    return 2.0 * blocks * 128 * 128 * iters
+
+
 fused_mlp.launches = 0
+fused_mlp.launches_by_body = dict.fromkeys(BODIES, 0)
 
 
 def fused_mlp_from_module(mlp, x: torch.Tensor) -> torch.Tensor:

@@ -14,11 +14,19 @@ import torch
 
 from pearl_tpu.ops.fused_mlp import _pallas_forward, _reference_forward
 from pearl_tpu.ops.fused_mlp import fused_mlp as jax_fused_mlp
+import chip_smoke
 from pearl_tpu_torch.neural_networks.common import MLP
 from pearl_tpu_torch.ops.fused_mlp import (
+    BODIES,
+    H100_SMS,
+    MAX_LAYERS,
+    MAX_WIDTH,
+    ROWS_PER_SM,
+    TILE_MAX_WIDTH,
     fused_mlp,
     fused_mlp_from_module,
     fused_mlp_reference,
+    pick_body,
 )
 
 torch.set_num_threads(1)
@@ -120,14 +128,71 @@ def test_wrapper_rejects_bad_operands(mutate, error):
         fused_mlp(bad_x, *bad_wb)
 
 
+def test_pick_body_takes_the_main_path_shapes_to_the_new_bodies():
+    # The DQN runner's act launch (131072 envs) and its learn launch (batch
+    # 1024) on an H100: the tiled and the rows body, never the first design.
+    assert pick_body(*chip_smoke.ACT_SHAPE) == "tiled"
+    assert pick_body(*chip_smoke.LEARN_SHAPE) == "rows"
+    assert chip_smoke.ACT_SHAPE[0] == 131_072 and chip_smoke.LEARN_SHAPE[0] == 1_024
+
+
+@pytest.mark.parametrize("B,dims", chip_smoke.CHECK_SHAPES)
+def test_pick_body_gives_every_checked_shape_a_body_that_takes_it(B, dims):
+    body = pick_body(B, dims)
+    assert body in BODIES
+    if body == "rows":
+        assert B <= ROWS_PER_SM * H100_SMS
+    else:
+        assert B > ROWS_PER_SM * H100_SMS
+        assert (body == "tiled") == (max(dims[1:]) <= TILE_MAX_WIDTH)
+
+
+def test_checked_shapes_reach_every_body():
+    assert {pick_body(B, dims) for B, dims in chip_smoke.CHECK_SHAPES} == set(BODIES)
+
+
+@pytest.mark.parametrize("sms", [1, 108, 132])
+def test_pick_body_switches_from_rows_at_32_rows_an_sm(sms):
+    dims = (4, 64, 64, 2)
+    assert pick_body(ROWS_PER_SM * sms, dims, sms) == "rows"
+    assert pick_body(ROWS_PER_SM * sms + 1, dims, sms) == "tiled"
+    assert pick_body(ROWS_PER_SM * sms + 1, chip_smoke.WIDE_DIMS, sms) == "general"
+    assert pick_body(1, chip_smoke.WIDE_DIMS, sms) == "rows"
+
+
+def test_pick_body_follows_the_shared_memory_it_is_given():
+    dims = (256, 64, 64, 64, 2)  # a 256-wide input: 256 rows of it are 256 KB
+    assert pick_body(100_000, dims) == "general"
+    assert pick_body(100_000, dims, smem_optin=2**20) == "tiled"
+    # The act chain's tile: 64 KB of activations and 19 KB of weights.
+    assert pick_body(100_000, (4, 64, 64, 2), smem_optin=84_496) == "tiled"
+    assert pick_body(100_000, (4, 64, 64, 2), smem_optin=84_495) == "general"
+
+
+@pytest.mark.parametrize(
+    "B,dims",
+    [
+        (1024, (4,) + (8,) * (MAX_LAYERS + 1)),  # too many layers
+        (1024, (4, MAX_WIDTH + 1, 2)),  # too wide
+        (1024, (4, 0, 2)),
+        (1024, (4,)),  # no layer
+        (100_000, (MAX_WIDTH,) * (MAX_LAYERS + 1)),  # fits no block's shared memory
+    ],
+)
+def test_pick_body_raises_at_the_kernel_limits(B, dims):
+    with pytest.raises(ValueError, match="fused_mlp kernel"):
+        pick_body(B, dims)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,dims", SHAPES + [(131_072, (4, 64, 64, 2)), (1024, (4, 64, 64, 2))])
+@pytest.mark.parametrize("B,dims", chip_smoke.CHECK_SHAPES)
 def test_kernel_matches_plain_chain_on_card(cuda_device, B, dims):
     x, _, torch_wb = _operands(B, dims, seed=B)
     x = torch.from_numpy(x).to(cuda_device)
     wb = [t.to(cuda_device) for t in torch_wb]
-    before = fused_mlp.launches
+    before, by_body = fused_mlp.launches, dict(fused_mlp.launches_by_body)
     out = fused_mlp(x, *wb)
     torch.cuda.synchronize()
     assert fused_mlp.launches == before + 1
+    assert sum(fused_mlp.launches_by_body.values()) == sum(by_body.values()) + 1
     torch.testing.assert_close(out, fused_mlp_reference(x, wb), **FWD_TOL)

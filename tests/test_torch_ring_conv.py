@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import pearl_tpu.ops.ring_conv as jrc
 import pearl_tpu_torch.neural_networks.q_value_networks as qvn
 from pearl_tpu.history_summarization_modules.frame_ring import FrameRingView as JaxView
@@ -227,19 +228,116 @@ def test_ring_conv1_checks_its_arguments(kwargs, error):
         trc.ring_conv1(**args, H=10, W=10, k=4, s=2)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+BENCH = (chip_smoke.VIS_T, chip_smoke.VIS_H, chip_smoke.VIS_W, chip_smoke.VIS_K,
+         chip_smoke.VIS_S, chip_smoke.VIS_OC)
+
+
+def test_pick_body_takes_the_runner_shape_to_the_tensor_core_body():
+    # conv1 of the visual workload on its bfloat16 ring: (T, H, W, k, s, OC) =
+    # (4, 84, 84, 8, 4, 16); a float32 ring keeps the CUDA-core body (its
+    # 2e-5 tolerance rules out TF32), and so does an unaligned ring.
+    assert BENCH == (4, 84, 84, 8, 4, 16)
+    assert trc.pick_body(BF16, *BENCH) == "mma"
+    assert trc.pick_body(F32, *BENCH) == "general"
+    assert trc.pick_body(BF16, *BENCH, ring_aligned=False) == "general"
+    # Three envs' frames fit beside the weights and two copies of out[b]; with
+    # room for one env only the bulk copies could not run ahead.
+    assert trc._mma_stages(4, 84, 84, 8, 16, 400, trc._KERNEL_SMEM) == 3
+    assert trc.pick_body(BF16, *BENCH, smem=120_000) == "general"
+    assert trc.pick_body(BF16, *BENCH, smem=160_000) == "mma"
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("shape", chip_smoke.CONV_SMALL)
+def test_pick_body_gives_every_checked_shape_a_body_that_takes_it(shape, dtype):
+    _, T, H, W, k, s, OC = shape
+    body = trc.pick_body(dtype, T, H, W, k, s, OC)
+    assert body in trc.BODIES
+    takes = (dtype == BF16 and k % 8 == 0 and s % 4 == 0 and W % 4 == 0 and OC in (8, 16, 32)
+             and (H * W * 2) % 16 == 0)
+    assert (body == "mma") == takes
+    if body == "mma":  # an A register pair is one aligned 8-byte word
+        for pixel in (0, ((H - k) // s + 1) * ((W - k) // s + 1) - 1):
+            for lane in range(4):
+                _, offset, _ = trc.a_fragment_offsets(
+                    pixel, 0, lane, W=W, OW=(W - k) // s + 1, k=k, s=s)
+                assert offset % 4 == 0
+
+
+def test_checked_shapes_reach_both_bodies_in_bfloat16():
+    bodies = [trc.pick_body(BF16, *shape[1:]) for shape in chip_smoke.CONV_SMALL]
+    assert set(bodies) == set(trc.BODIES)
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        (BF16, 4, 84, 84, 8, 4, 12),  # a channel count no body has
+        (BF16, 33, 84, 84, 8, 4, 16),  # more frames than a block's flags
+        (BF16, 4, 6, 84, 8, 4, 16),  # kernel larger than the frame
+        (torch.float16, 4, 84, 84, 8, 4, 16),
+    ],
+)
+def test_pick_body_raises_for_rings_no_body_takes(args):
+    with pytest.raises(ValueError, match="ring_conv1 takes no ring"):
+        trc.pick_body(*args)
+
+
+@pytest.mark.parametrize(
+    "T,H,W,k,s",
+    [(4, 84, 84, 8, 4), (2, 36, 44, 16, 4), (3, 32, 28, 8, 8)],
+)
+def test_a_fragment_address_map_is_an_im2col_of_the_staged_frames(T, H, W, k, s):
+    """The index algebra of the tensor-core body, in numpy: gathering every
+    lane's 8-byte word of every k-step and multiplying it with the rows of
+    `wmat` the map names is the convolution, term for term."""
+    rng = np.random.default_rng(T * 1000 + k)
+    OH, OW, OC = (H - k) // s + 1, (W - k) // s + 1, 8
+    frames = rng.integers(0, 255, (T, H * W)).astype(np.float64)  # one env, as staged
+    wmat = rng.integers(-8, 8, (T * k * k, OC)).astype(np.float64)
+    # Explicit im2col: patch[p, (t*k + ky)*k + kx] = frame t at (oy*s+ky, ox*s+kx).
+    img = frames.reshape(T, H, W)
+    patches = np.empty((OH * OW, T * k * k))
+    for p in range(OH * OW):
+        oy, ox = divmod(p, OW)
+        patches[p] = img[:, oy * s : oy * s + k, ox * s : ox * s + k].reshape(-1)
+    want = patches @ wmat
+
+    ksteps = T * (k // 2) * (k // 8)
+    pixels = sorted({0, 1, OW - 1, OW, OH * OW - 1, (OH * OW) // 2})
+    for p in pixels:
+        got = np.zeros(OC)
+        seen = []
+        for ks in range(ksteps):
+            for c in range(4):  # lane % 4; lane // 4 only picks the pixel
+                t, offset, rows = trc.a_fragment_offsets(p, ks, c + 4 * (p % 8), W=W, OW=OW, k=k, s=s)
+                assert offset % 4 == 0 and offset + 3 < H * W  # aligned, inside frame t
+                word = frames[t, offset : offset + 4]
+                np.testing.assert_array_equal(word, patches[p, rows])
+                assert rows[0] // (k * k) == t
+                got += word @ wmat[rows]
+                seen += rows
+        assert sorted(seen) == list(range(T * k * k))  # every term once
+        np.testing.assert_array_equal(got, want[p])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version_on_card(dtype):
+@pytest.mark.parametrize("shape", [(37, 3, 28, 28, 8, 4, 8)] + chip_smoke.CONV_SMALL[5:])
+def test_kernel_matches_plain_version_on_card(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU form")
-    B, T, H, W, k, s, OC = 37, 3, 28, 28, 8, 4, 8
+    B, T, H, W, k, s, OC = shape
+    B = max(B, 2)  # `_operands` marks env 0 all invalid and env 1 all valid
     ring, valid, wmat, bias = (
         torch.from_numpy(x).cuda() for x in _operands(B, T, H, W, k, OC, seed=9))
     ring = (ring * 50).to(dtype)
-    before = trc.ring_conv1.launches
+    before = (trc.ring_conv1.launches, trc.ring_conv1.mma_launches)
     got = trc.ring_conv1(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
     torch.cuda.synchronize()
-    assert trc.ring_conv1.launches == before + 1
+    mma = trc.pick_body(dtype, T, H, W, k, s, OC) == "mma"
+    assert (trc.ring_conv1.launches, trc.ring_conv1.mma_launches) == (before[0] + 1, before[1] + mma)
     want = trc.ring_conv1_reference(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
     tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=2e-5)
     torch.testing.assert_close(got.float(), want.float(), **tol)
