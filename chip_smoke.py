@@ -28,7 +28,18 @@ Phases, each printing its seconds:
      opt-in act paths of the 1-channel composition, each at full width: the
      conv1 cache (`conv1_cache=True`, the path of `cache_write`) and the ring
      conv (`ring_conv=True`, the path of `ring_conv1`, every launch in the
-     tensor-core body).
+     tensor-core body);
+  7. csac runner: drives `make_compiled_runner` at the full width of the
+     continuous SAC workload (Pendulum, 131072 envs, batch 1024, a replay of
+     2097152 rows, 8 steps per learn, 16 learns per call): a warm-up call
+     that checks every action, four timed calls, a profiled call, and the
+     device kernels of one env step and of one learn. This path reaches no
+     kernel of the port: actor and twin critic are plain PyTorch products,
+     as the reference computes them outside Pallas;
+  8. ddpg and td3 runners: the same width, a warm-up and a timed call each,
+     and TD3's delay gate held exactly;
+  9. continuous learning: `online_learning` with continuous SAC must reach
+     Pendulum -250.
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -299,7 +310,7 @@ def profile_call(run_fn, astate, env_states, gen, wall_s):
     busy_s = sum(by_name.values()) / 1e6
     if busy_s == 0:
         print("profile: the profiler saw no device time (idle share not measured)")
-        return
+        return None
     print(
         f"profile: device busy {busy_s * 1e3:.3f} ms per runner call in {n_device} "
         f"kernels and copies, unprofiled wall {wall_s * 1e3:.3f} ms per call, "
@@ -311,6 +322,20 @@ def profile_call(run_fn, astate, env_states, gen, wall_s):
     shown = ranked[:12] + [kv for kv in ranked[12:] if "fused_mlp" in kv[0] or "ring_conv1" in kv[0]]
     for name, us in shown:
         print(f"profile:   {us / 1e3:10.3f} ms  {100 * us / 1e6 / busy_s:5.1f}%  {name[:90]}")
+    return {"busy_ms": busy_s * 1e3, "wall_ms": wall_s * 1e3, "idle_share": 1 - busy_s / wall_s,
+            "device_kernels": n_device}
+
+
+def device_kernels(fn):
+    """Kernels and copies the card ran for `fn()`, counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for evt in prof.events()
+               if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation)
 
 
 def run_learning(card):
@@ -971,6 +996,223 @@ def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
     return launches, sps
 
 
+# Continuous control: the CSAC workload of bench.py:287-312, nothing cut.
+CONT_B, CONT_SPL, CONT_LPC = 131_072, 8, 16
+CONT_CAPACITY = 16 * CONT_B  # 2_097_152 rows: 16 pushes resident
+
+
+def continuous_learner(name, **kw):
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        TD3, ContinuousSoftActorCritic, DeepDeterministicPolicyGradient,
+    )
+
+    cls = {"csac": ContinuousSoftActorCritic, "ddpg": DeepDeterministicPolicyGradient,
+           "td3": TD3}[name]
+    return cls(**kw)
+
+
+def checked_pendulum():
+    """Pendulum that counts, on the card, the actions it was given that are
+    not finite or lie outside [-max_torque, max_torque], and on the host the
+    actions it saw; for the one call of a runner that checks every action
+    (the count costs launches)."""
+    from pearl_tpu_torch.envs import Pendulum
+
+    @dataclasses.dataclass(frozen=True)
+    class CheckedPendulum(Pendulum):
+        bad: torch.Tensor = dataclasses.field(
+            default_factory=lambda: torch.zeros((), dtype=torch.int64, device="cuda"))
+        seen: list = dataclasses.field(default_factory=lambda: [0])
+
+        def step(self, state, action):
+            a = action.float()
+            self.bad.add_((~torch.isfinite(a) | (a.abs() > self.max_torque)).sum())
+            self.seen[0] += a.numel()
+            return super().step(state, action)
+
+    return CheckedPendulum()
+
+
+def run_continuous_runner(card, name, calls):
+    """`make_compiled_runner` at the CSAC workload's width with learner
+    `name`: a warm-up call through a Pendulum that checks every action, then
+    `calls` timed calls, each synchronised and timed on its own. Returns
+    (agent, env, runner, state, env-steps/s per timed call)."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import Pendulum
+    from pearl_tpu_torch.ops.fused_mlp import fused_mlp
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    agent = PearlAgent(
+        policy_learner=continuous_learner(name, training_rounds=1, batch_size=1024),
+        replay_buffer=BasicReplayBuffer(capacity=CONT_CAPACITY),
+    )
+    env = Pendulum()
+    kw = dict(num_envs=CONT_B, steps_per_learn=CONT_SPL, learns_per_call=CONT_LPC)
+    init_fn, run_fn = make_compiled_runner(agent, env, **kw)
+    checked = checked_pendulum()
+    _, run_checked = make_compiled_runner(agent, checked, **kw)
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, "cuda")
+    steps_per_call = CONT_SPL * CONT_LPC
+    fused_before = fused_mlp.launches
+    t0 = time.perf_counter()
+    astate, env_states, stats = run_checked(astate, env_states, gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"{name} runner, warm-up call (every action checked): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    assert checked.seen[0] == steps_per_call * CONT_B and checked.bad.item() == 0, (
+        checked.seen, checked.bad.item())
+    rates = []
+    for c in range(calls):
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates.append(steps_per_call * CONT_B / (time.perf_counter() - t0))
+        # The actions resident in the replay: the last 16 steps of this call.
+        actions = astate.replay.storage.action
+        assert torch.isfinite(actions).all() and (actions.abs() <= 2.0).all()
+    pushed = steps_per_call * CONT_B * (calls + 1)
+    replay = astate.replay
+    assert replay.size == min(pushed, CONT_CAPACITY) and replay.cursor == pushed % CONT_CAPACITY, (
+        replay.size, replay.cursor, pushed)
+    assert (replay.storage.action_index == 0).all()
+    assert astate.learner.step == CONT_LPC * (calls + 1), astate.learner.step
+    assert fused_mlp.launches == fused_before  # this path reaches no kernel of the port
+    reward_sum, episodes = stats["reward_sum"].item(), stats["episodes"].item()
+    assert math.isfinite(reward_sum) and reward_sum < 0, reward_sum
+    assert episodes == CONT_B * ((calls + 1) * steps_per_call // 200 - (calls * steps_per_call) // 200)
+    print(f"{name} runner: env-steps/s per timed call "
+          f"{', '.join(f'{r:.1f}' for r in rates)} (median {statistics.median(rates):.1f}); last "
+          f"call reward_sum={reward_sum:.1f} episodes={episodes}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
+    return agent, env, run_fn, (astate, env_states, gen), rates
+
+
+def check_learn_metrics(agent, env, astate, gen, name):
+    """One more learn: its losses (and SAC's temperature) are finite."""
+    astate, metrics = agent.for_env(env).learn(astate, gen)
+    values = {k: v.item() for k, v in metrics.items()}
+    assert values and all(math.isfinite(v) for v in values.values()), values
+    extra = astate.learner.extra
+    if extra is not None:
+        assert math.isfinite(extra.log_alpha.item()), extra.log_alpha
+        values["log_alpha"] = extra.log_alpha.item()
+    print(f"{name} learn metrics: " + ", ".join(f"{k}={v:.6f}" for k, v in values.items()),
+          flush=True)
+    return astate
+
+
+def run_csac_runner(card):
+    """The CSAC runner: per-call rates, a profiled call (busy and idle share,
+    the top kernels), and the device kernels of one env step and of one
+    learn, counted apart: each as the difference of two profiled windows of
+    different lengths, so that what a window's edges add or lose cancels."""
+    from pearl_tpu_torch.envs import VectorEnv
+
+    agent, env, run_fn, (astate, env_states, gen), rates = run_continuous_runner(card, "csac", 4)
+    torch.cuda.synchronize()
+    wall_s = CONT_SPL * CONT_LPC * CONT_B / statistics.median(rates)
+    prof = profile_call(run_fn, astate, env_states, gen, wall_s)
+    bound = agent.for_env(env)
+    venv = VectorEnv(env, CONT_B, torch.device("cuda"))
+    box = {"astate": astate, "env_states": env_states}
+
+    def env_steps(n):
+        a, e = box["astate"], box["env_states"]
+        for _ in range(n):
+            a, choice = bound.act(a, gen)
+            e, result, next_obs = venv.step(e, choice.action, gen)
+            a = bound.observe(a, result, next_obs, gen)
+        box.update(astate=a, env_states=e)
+
+    def learns(n):
+        a = box["astate"]
+        for _ in range(n):
+            a, _ = bound.learn(a, gen)
+        box["astate"] = a
+
+    def per_unit(fn, short, long):
+        counts = [device_kernels(lambda: fn(n)) for n in (short, long)]
+        return (counts[1] - counts[0]) / (long - short), counts
+
+    per_step, step_counts = per_unit(env_steps, 8, 72)
+    per_learn, learn_counts = per_unit(learns, 4, 20)
+    astate = check_learn_metrics(agent, env, box["astate"], gen, "csac")
+    per_call = CONT_SPL * CONT_LPC * per_step + CONT_LPC * per_learn
+    print(f"csac runner: {per_step:.1f} device kernels per env step (windows of 8 and 72 steps: "
+          f"{step_counts}), {per_learn:.1f} per learn (training_rounds=1, batch 1024; windows of "
+          f"4 and 20: {learn_counts}), so {per_call:.0f} per call besides the runner's own sums "
+          f"(the profiled call: {prof and prof['device_kernels']}) on {card}", flush=True)
+    return {"rates": rates, "profile": prof, "kernels_per_step": per_step,
+            "kernels_per_learn": per_learn}
+
+
+def run_ddpg_td3_runners(card):
+    """DDPG and TD3 at the CSAC workload's width, a warm-up and a timed call
+    each; then TD3's delay gate: over two more learns the actor and its
+    target stay exactly as they were on the closed step and move on the
+    open one."""
+    out = {}
+    for name in ("ddpg", "td3"):
+        agent, env, _, (astate, _, gen), rates = run_continuous_runner(card, name, 1)
+        astate = check_learn_metrics(agent, env, astate, gen, name)
+        out[name] = rates[0]
+    bound = agent.for_env(env)
+    gates = []
+    for _ in range(2):
+        learner = astate.learner
+        actor = [p.detach().clone() for p in learner.actor_params.parameters()]
+        target = [p.clone() for p in learner.actor_target_params.parameters()]
+        astate, _ = bound.learn(astate, gen)
+        torch.cuda.synchronize()
+        open_ = astate.learner.step % bound.policy_learner.actor_update_freq == 0
+        same_actor = all(torch.equal(a, b) for a, b in zip(actor, astate.learner.actor_params.parameters()))
+        same_target = all(torch.equal(a, b) for a, b in zip(
+            target, astate.learner.actor_target_params.parameters()))
+        assert same_actor == same_target == (not open_), (open_, same_actor, same_target)
+        gates.append(open_)
+    assert sorted(gates) == [False, True], gates
+    print(f"td3 delay gate: the actor and its target held exactly on the closed learn and moved "
+          f"on the open one (learn steps {astate.learner.step - 1}, {astate.learner.step})",
+          flush=True)
+    return out
+
+
+def run_continuous_learning(card):
+    """Continuous SAC must reach Pendulum -250 (test_convergence.py:62-71,
+    161-167: 16 envs, one learn per step after 1000, 2 rounds of 100, seed
+    42, within 300000 env steps)."""
+    import numpy as np
+
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import Pendulum
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.training import online_learning
+
+    agent = PearlAgent(
+        policy_learner=continuous_learner(
+            "csac", training_rounds=2, batch_size=100, entropy_coef=0.1,
+            actor_learning_rate=1e-3, critic_learning_rate=1e-3,
+        ),
+        replay_buffer=BasicReplayBuffer(capacity=100_000),
+    )
+    t0 = time.perf_counter()
+    res = online_learning(
+        agent, Pendulum(), num_envs=16, max_steps=300_000, learn_every_k_steps=1,
+        learning_starts=1_000, seed=42, target_return=-250.0, target_window=20,
+    )
+    seconds = time.perf_counter() - t0
+    last = float(np.mean(res.episode_returns[-20:])) if len(res.episode_returns) else float("nan")
+    print(f"continuous learning: reached_target={res.reached_target} after {res.total_steps} env "
+          f"steps in {seconds:.1f} s, {len(res.episode_returns)} episodes, last-20 mean return "
+          f"{last:.1f} on {card}", flush=True)
+    assert res.reached_target, "online_learning did not reach Pendulum -250 with continuous SAC"
+    return res.total_steps, seconds
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -1064,6 +1306,18 @@ def main() -> int:
         f"{sps_default:.1f}, conv1_cache {sps_cached:.1f}, ring_conv {sps_fused:.1f}, default "
         f"again {sps_default_again:.1f} on {card}", flush=True)
     phase("visual runner, opt-in act paths", t0)
+
+    t0 = time.perf_counter()
+    run_csac_runner(card)
+    phase("csac runner", t0)
+
+    t0 = time.perf_counter()
+    run_ddpg_td3_runners(card)
+    phase("ddpg and td3 runners", t0)
+
+    t0 = time.perf_counter()
+    run_continuous_learning(card)
+    phase("continuous learning", t0)
 
     act = timing[ACT_SHAPE[0]]
     kernels = [{

@@ -25,6 +25,7 @@ __version__ = "0.1.0"
 
 from pearl_tpu_torch.api.types import ActionResult  # noqa: E402,F401
 from pearl_tpu_torch.api.spaces import (  # noqa: E402,F401
+    BoxActionSpace,
     BoxSpace,
     DiscreteActionSpace,
     DiscreteSpace,

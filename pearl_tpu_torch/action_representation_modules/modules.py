@@ -11,7 +11,6 @@ import abc
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 
 class ActionRepresentationModule(abc.ABC):
@@ -56,8 +55,13 @@ class OneHotActionRepresentation(ActionRepresentationModule):
         return dataclasses.replace(self, max_number_actions=max_number_actions)
 
     def apply(self, action):
+        """`jax.nn.one_hot` of the index: (..., 0) for 0 classes and a zero
+        row for an index outside [0, n). A compare against `arange`: it needs
+        no host sync, and `F.one_hot` rejects both cases (on the CPU by a
+        check on the host, on the card by a device assert)."""
         idx = action[..., 0].to(torch.int64)
-        return F.one_hot(idx, self.max_number_actions).to(torch.float32)
+        classes = torch.arange(self.max_number_actions, device=action.device)
+        return (idx[..., None] == classes).to(torch.float32)
 
     def representation_dim(self, action_dim, max_number_actions):
         del action_dim

@@ -97,6 +97,12 @@ class PearlAgent:
         net = self.policy_learner.q_network
         return net if getattr(net, "cache_enabled", False) else None
 
+    def cache_params(self, learner_state):
+        """The learner's Q-network module when a conv1 cache needs it to be
+        seeded, else None: only that path reads `learner_state.params`, which
+        an actor-critic learner's state does not have."""
+        return learner_state.params if self._cache_net is not None else None
+
     # ------------------------------------------------------------------ setup
     def for_env(self, env) -> "PearlAgent":
         """Bind the learner to the env's action space."""
@@ -181,7 +187,7 @@ class PearlAgent:
             replay=self.replay_buffer.init(example),
             **self.fresh_per_env_state(
                 observation_dim, num_envs, initial_obs.to(device), device,
-                params=learner_state.params,
+                params=self.cache_params(learner_state),
             ),
         )
 

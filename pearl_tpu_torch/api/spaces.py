@@ -37,6 +37,10 @@ class DiscreteSpace:
     def element_dim(self) -> int:
         return int(self.elements.shape[1])
 
+    @property
+    def is_continuous(self) -> bool:
+        return False
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DiscreteActionSpace(DiscreteSpace):
@@ -71,3 +75,18 @@ class BoxSpace:
     @property
     def shape(self):
         return (self.dim,)
+
+    @property
+    def is_continuous(self) -> bool:
+        return True
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BoxActionSpace(BoxSpace):
+    """Continuous action space: a box of `action_dim` = `dim` torques,
+    forces, ... It has no `n`: `getattr(space, "n", 0)` is 0, as in the
+    reference."""
+
+    @property
+    def action_dim(self) -> int:
+        return self.dim

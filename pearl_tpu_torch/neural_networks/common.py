@@ -1,8 +1,9 @@
 """Common NN building blocks (port of `pearl_tpu/neural_networks/common.py`).
 
-Only what the DQN paths use is ported: the plain relu MLP (no layer norm,
-dropout or skip connections), the conv feature stack `ConvNet` and
-`select_index_last`.
+Only what the ported paths use: the relu MLP with an optional last
+activation (no layer norm, dropout or skip connections), the conv feature
+stack `ConvNet`, `select_index_last`, and the two initializers of flax's
+`Dense` and `Conv` layers.
 """
 
 from __future__ import annotations
@@ -14,10 +15,36 @@ import torch.nn.functional as F
 from torch import nn
 
 
+ACTIVATIONS = {"relu": F.relu, "tanh": torch.tanh}
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """flax's default kernel init, in place: a normal truncated to [-2, 2]
+    sigma, rescaled to variance 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def dense(d_in: int, d_out: int, generator=None, xavier: bool = True) -> nn.Linear:
+    """An `nn.Linear` initialised as flax's `Dense`: xavier-uniform (the
+    reference `MLP`'s choice) or lecun-normal (a bare `nn.Dense`) weights,
+    zero bias. Made on "meta" so that nn.Linear's own init draws nothing from
+    the global RNG; the weights come from `generator`."""
+    layer = nn.Linear(d_in, d_out, device="meta").to_empty(device="cpu")
+    with torch.no_grad():
+        if xavier:
+            nn.init.xavier_uniform_(layer.weight, generator=generator)
+        else:
+            lecun_normal_(layer.weight, d_in, generator)
+        layer.bias.zero_()
+    return layer
+
+
 class MLP(nn.Module):
-    """relu hiddens `dense_0 ... dense_{n-1}`, linear `dense_out`, xavier-
-    uniform weights and zero biases — the reference `MLP`'s defaults. Layer
-    names match the flax param dict so weights carry across by name."""
+    """relu hiddens `dense_0 ... dense_{n-1}`, linear `dense_out` followed by
+    `last_activation` ("relu", "tanh" or None), xavier-uniform weights and
+    zero biases — the reference `MLP`'s defaults. Layer names match the flax
+    param dict so weights carry across by name."""
 
     def __init__(
         self,
@@ -25,19 +52,15 @@ class MLP(nn.Module):
         hidden_dims: Sequence[int],
         output_dim: int = 1,
         generator: Optional[torch.Generator] = None,
+        last_activation: Optional[str] = None,
     ):
         super().__init__()
+        self.last_activation = last_activation
         self.layer_names: List[str] = [f"dense_{i}" for i in range(len(hidden_dims))]
         self.layer_names.append("dense_out")
         dims = [input_dim, *hidden_dims, output_dim]
         for name, d_in, d_out in zip(self.layer_names, dims[:-1], dims[1:]):
-            # Made on "meta" so that nn.Linear's own init draws nothing from
-            # the global RNG; the weights come from `generator` below.
-            layer = nn.Linear(d_in, d_out, device="meta").to_empty(device="cpu")
-            with torch.no_grad():
-                nn.init.xavier_uniform_(layer.weight, generator=generator)
-                layer.bias.zero_()
-            self.add_module(name, layer)
+            self.add_module(name, dense(d_in, d_out, generator))
 
     def layers(self) -> List[nn.Linear]:
         return [getattr(self, n) for n in self.layer_names]
@@ -54,7 +77,10 @@ class MLP(nn.Module):
         layers = self.layers()
         for layer in layers[:-1]:
             x = F.relu(promoted_linear(x, layer))
-        return promoted_linear(x, layers[-1])
+        x = promoted_linear(x, layers[-1])
+        if self.last_activation is not None:
+            x = ACTIVATIONS[self.last_activation](x)
+        return x
 
 
 def promoted_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -93,12 +119,7 @@ class ConvNet(nn.Module):
                 device="cpu"
             )
             with torch.no_grad():
-                # lecun_normal: truncated normal on [-2, 2] sigma, rescaled
-                # to variance 1 / fan_in.
-                std = (1.0 / (c_in * k * k)) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    layer.weight, std=std, a=-2 * std, b=2 * std, generator=generator
-                )
+                lecun_normal_(layer.weight, c_in * k * k, generator)
                 layer.bias.zero_()
             self.add_module(name, layer)
 

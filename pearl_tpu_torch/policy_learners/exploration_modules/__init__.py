@@ -2,6 +2,7 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
     EGreedyExploration,
     ExplorationModule,
     NoExploration,
+    NormalDistributionExploration,
     masked_argmax,
     uniform_index,
 )
@@ -10,6 +11,7 @@ __all__ = [
     "EGreedyExploration",
     "ExplorationModule",
     "NoExploration",
+    "NormalDistributionExploration",
     "masked_argmax",
     "uniform_index",
 ]

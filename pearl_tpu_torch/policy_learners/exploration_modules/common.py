@@ -1,12 +1,18 @@
 """Exploration modules (port of
 `pearl_tpu/policy_learners/exploration_modules/common.py`: `masked_argmax`,
-`NoExploration` and `EGreedyExploration`).
+`NoExploration`, `EGreedyExploration` and, for continuous actions,
+`NormalDistributionExploration`).
 
 Protocol, batched over B envs:
 
     init(num_envs) -> ExploreState
     act(state, scores, exploit_index, mask, generator) -> (state', index (B,))
     reset(state, done_mask, generator) -> state'
+
+A continuous-action module instead has
+
+    act_continuous(state, exploit_action, low, high, generator, noise=None)
+        -> (state', action (B, d))
 
 The ε-greedy step counter is a host integer (it grows by B per act, a
 number the host knows), so the schedule costs no device sync.
@@ -97,3 +103,21 @@ class EGreedyExploration(ExplorationModule):
         eps = self.current_epsilon(state)
         index = torch.where(explore_u < eps, random_index.to(torch.int32), exploit_index)
         return state + B, index
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalDistributionExploration(ExplorationModule):
+    """Gaussian noise on continuous actions, scaled by the action range and
+    clipped to the box. `noise`, when given, is the standard normal draw
+    (B, d) that `generator` would have made."""
+
+    mean: float = 0.0
+    std_dev: float = 0.1
+
+    def act_continuous(self, state, exploit_action, low, high, generator, noise=None):
+        if noise is None:
+            noise = torch.randn(
+                exploit_action.shape, generator=generator, device=exploit_action.device
+            )
+        scaled = (self.mean + self.std_dev * noise) * (high - low) / 2.0
+        return state, torch.clamp(exploit_action + scaled, low, high)

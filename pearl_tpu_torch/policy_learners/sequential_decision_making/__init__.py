@@ -1,8 +1,32 @@
+from pearl_tpu_torch.policy_learners.sequential_decision_making.actor_critic_base import (
+    ActorCriticBase,
+    ActorCriticState,
+)
+from pearl_tpu_torch.policy_learners.sequential_decision_making.ddpg import (
+    DeepDeterministicPolicyGradient,
+)
 from pearl_tpu_torch.policy_learners.sequential_decision_making.deep_td import (
     DeepQLearning,
     DeepTDLearning,
     DeepTDState,
     DoubleDQN,
 )
+from pearl_tpu_torch.policy_learners.sequential_decision_making.sac_continuous import (
+    AlphaState,
+    ContinuousSoftActorCritic,
+)
+from pearl_tpu_torch.policy_learners.sequential_decision_making.td3 import TD3, TD3BC
 
-__all__ = ["DeepQLearning", "DeepTDLearning", "DeepTDState", "DoubleDQN"]
+__all__ = [
+    "ActorCriticBase",
+    "ActorCriticState",
+    "AlphaState",
+    "ContinuousSoftActorCritic",
+    "DeepDeterministicPolicyGradient",
+    "DeepQLearning",
+    "DeepTDLearning",
+    "DeepTDState",
+    "DoubleDQN",
+    "TD3",
+    "TD3BC",
+]

@@ -47,7 +47,7 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
 )
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
-from pearl_tpu_torch.utils.pytree import soft_update
+from pearl_tpu_torch.utils.pytree import soft_update, synced_cast
 
 
 @dataclasses.dataclass
@@ -123,19 +123,8 @@ class DeepTDLearning(PolicyLearner):
     @staticmethod
     def _act_module(state: DeepTDState) -> nn.Module:
         """`state.act_params`, recast from `state.params` if those were
-        written since the last cast: by a learn step, a weight load, a
-        `load_state_dict`, or because the state now holds another module.
-        Each parameter's identity and in-place version counter are compared
-        on the host, so an unchanged step costs no launch and no sync. (A
-        write through `.data` bypasses the counter: write parameters under
-        `torch.no_grad()` instead.)"""
-        stamp = tuple((id(p), p._version) for p in state.params.parameters())
-        if getattr(state.act_params, "_cast_of", None) != stamp:
-            with torch.no_grad():
-                for cast, param in zip(state.act_params.parameters(), state.params.parameters()):
-                    cast.copy_(param)
-            state.act_params._cast_of = stamp
-        return state.act_params
+        written since the last cast (`utils.pytree.synced_cast`)."""
+        return synced_cast(state.act_params, state.params)
 
     @staticmethod
     def _candidates(state: DeepTDState, batch_size: int) -> torch.Tensor:

@@ -131,7 +131,7 @@ def online_learning(
                 agent_state,
                 **agent.fresh_per_env_state(
                     venv.observation_dim, num_envs, obs, device,
-                    params=agent_state.learner.params,
+                    params=agent.cache_params(agent_state.learner),
                 ),
             )
 

@@ -13,6 +13,12 @@ with HWIO kernels (`load_flax_cnn_q_params`).
 
 `frame_ring_view_from_numpy` carries the frame-ring state across: a JAX
 `FrameRingView`'s ring, validity mask, cursor and conv1 cache.
+
+The continuous-control networks: `GaussianActorNetwork`'s tree is
+`{"MLP_0": {...}, "mu": {kernel, bias}, "log_std": {kernel, bias}}`,
+`VanillaContinuousActorNetwork`'s `{"MLP_0": {...}}`, and `TwinCritic`'s
+`{"MLP_0": {...}}` with a leading 2 on every leaf (the two members'
+stacked params), which the port keeps as they are.
 """
 
 from __future__ import annotations
@@ -31,15 +37,29 @@ def load_flax_mlp(mlp: nn.Module, params: Mapping) -> None:
     if names != set(mlp.layer_names):
         raise ValueError(f"flax MLP layers {sorted(names)} != port layers {mlp.layer_names}")
     for name, layer in zip(mlp.layer_names, mlp.layers()):
-        kernel = torch.from_numpy(np.array(params[name]["kernel"], dtype=np.float32))
-        bias = torch.from_numpy(np.array(params[name]["bias"], dtype=np.float32))
-        if kernel.T.shape != layer.weight.shape or bias.shape != layer.bias.shape:
-            raise ValueError(
-                f"{name}: flax kernel {tuple(kernel.shape)} / bias {tuple(bias.shape)} "
-                f"do not fit nn.Linear weight {tuple(layer.weight.shape)}"
-            )
-        layer.weight.copy_(kernel.T)
-        layer.bias.copy_(bias)
+        load_flax_dense(layer, params[name], name)
+
+
+def _np(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+@torch.no_grad()
+def load_flax_dense(layer: nn.Linear, params: Mapping, name: str) -> None:
+    """Copy a flax `Dense` ({kernel (in, out), bias}) into an `nn.Linear`."""
+    kernel, bias = _np(params["kernel"]), _np(params["bias"])
+    if kernel.T.shape != layer.weight.shape or bias.shape != layer.bias.shape:
+        raise ValueError(
+            f"{name}: flax kernel {tuple(kernel.shape)} / bias {tuple(bias.shape)} "
+            f"do not fit nn.Linear weight {tuple(layer.weight.shape)}"
+        )
+    layer.weight.copy_(kernel.T)
+    layer.bias.copy_(bias)
+
+
+def _check_keys(params: Mapping, keys) -> None:
+    if set(params) != set(keys):
+        raise ValueError(f"expected a param tree with keys {sorted(keys)}, got {sorted(params)}")
 
 
 def load_flax_q_params(net: nn.Module, params: Mapping) -> nn.Module:
@@ -48,6 +68,45 @@ def load_flax_q_params(net: nn.Module, params: Mapping) -> nn.Module:
     if set(params) != {"MLP_0"}:
         raise ValueError(f"expected a {{'MLP_0': ...}} param tree, got keys {sorted(params)}")
     load_flax_mlp(net.MLP_0, params["MLP_0"])
+    return net
+
+
+def load_flax_gaussian_actor_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `GaussianActorNetwork`'s flax params into the port's
+    `_GaussianHeads`; returns `net`."""
+    _check_keys(params, ("MLP_0", "mu", "log_std"))
+    load_flax_mlp(net.MLP_0, params["MLP_0"])
+    load_flax_dense(net.mu, params["mu"], "mu")
+    load_flax_dense(net.log_std, params["log_std"], "log_std")
+    return net
+
+
+def load_flax_deterministic_actor_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `VanillaContinuousActorNetwork`'s flax params into the port's
+    `_DeterministicNet`; returns `net`."""
+    _check_keys(params, ("MLP_0",))
+    load_flax_mlp(net.MLP_0, params["MLP_0"])
+    return net
+
+
+@torch.no_grad()
+def load_flax_twin_critic_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `TwinCritic`'s stacked flax params, every leaf with its leading
+    2, into the port's `_TwinPairQNet` (the same layout); returns `net`."""
+    _check_keys(params, ("MLP_0",))
+    mlp = net.MLP_0
+    if set(params["MLP_0"]) != set(mlp.layer_names):
+        raise ValueError(
+            f"flax MLP layers {sorted(params['MLP_0'])} != port layers {mlp.layer_names}"
+        )
+    for name, layer in zip(mlp.layer_names, mlp.layers()):
+        for leaf in ("kernel", "bias"):
+            value, target = _np(params["MLP_0"][name][leaf]), getattr(layer, leaf)
+            if value.shape != target.shape:
+                raise ValueError(
+                    f"{name}.{leaf}: flax {tuple(value.shape)} != port {tuple(target.shape)}"
+                )
+            target.copy_(value)
     return net
 
 

@@ -1,6 +1,7 @@
 """Tree utilities over dataclasses, dicts, tuples and tensors (port of
 `pearl_tpu/utils/pytree.py`): per-env conditional state updates for the
-asynchronous auto-reset, and target-network soft updates."""
+asynchronous auto-reset, target-network soft updates, and the act path's
+cast copy of a network."""
 
 from __future__ import annotations
 
@@ -50,3 +51,20 @@ def soft_update(target, source, tau: float) -> None:
     (`t + tau * (s - t)`), not with `lerp_`, whose formula changes at 0.5."""
     for t, s in zip(target.parameters(), source.parameters()):
         t.add_(s - t, alpha=tau)
+
+
+def synced_cast(cast, source):
+    """`cast` (a copy of the `nn.Module` `source` in a lower dtype), recast
+    from `source` if that was written since the last cast: by a learn step,
+    a weight load, a `load_state_dict`, or because the caller now holds
+    another module. Each parameter's identity and in-place version counter
+    are compared on the host, so an unchanged step costs no launch and no
+    sync. (A write through `.data` bypasses the counter: write parameters
+    under `torch.no_grad()` instead.)"""
+    stamp = tuple((id(p), p._version) for p in source.parameters())
+    if getattr(cast, "_cast_of", None) != stamp:
+        with torch.no_grad():
+            for c, p in zip(cast.parameters(), source.parameters()):
+                c.copy_(p)
+        cast._cast_of = stamp
+    return cast

@@ -1,4 +1,4 @@
-"""CartPole, SyntheticAtari and the vector env of the PyTorch port
+"""CartPole, Pendulum, SyntheticAtari and the vector env of the PyTorch port
 (pearl_tpu_torch/envs) against the JAX package's (pearl_tpu/envs): the same
 numpy-made states and actions give the same next state, reward, terminated
 and truncated, and the auto-reset keeps the terminal observation in the
@@ -13,16 +13,22 @@ import torch
 
 from pearl_tpu.envs.cartpole import CartPole as JaxCartPole
 from pearl_tpu.envs.cartpole import CartPoleState as JaxCartPoleState
+from pearl_tpu.envs.pendulum import Pendulum as JaxPendulum
+from pearl_tpu.envs.pendulum import PendulumState as JaxPendulumState
+from pearl_tpu.envs.pendulum import _angle_normalize as jax_angle_normalize
 from pearl_tpu.envs.synthetic_visual import SyntheticAtari as JaxSyntheticAtari
 from pearl_tpu.envs.synthetic_visual import SyntheticAtariState as JaxSyntheticAtariState
 from pearl_tpu.utils.pytree import tree_select as jax_tree_select
 from pearl_tpu_torch.envs import (
     CartPole,
     CartPoleState,
+    Pendulum,
+    PendulumState,
     SyntheticAtari,
     SyntheticAtariState,
     VectorEnv,
 )
+from pearl_tpu_torch.envs.pendulum import _angle_normalize
 from pearl_tpu_torch.utils import make_generator
 
 torch.set_num_threads(1)
@@ -216,3 +222,125 @@ def test_vector_env_auto_resets_synthetic_atari():
     assert (next_states.t[:3] == 0).all() and (next_states.phase[:3] == 1.5).all()
     assert torch.equal(next_obs[:3], fresh_obs[:3]) and torch.equal(next_obs[3:], res.observation[3:])
     assert not torch.equal(res.observation[:3], fresh_obs[:3])  # the terminal frame stays
+
+
+# Pendulum: sin and cos of XLA and of PyTorch may differ by an ulp, which
+# the step's products carry on; atol 1e-5 as values reach 8 (speed) and 16
+# (cost).
+PENDULUM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _jax_pendulum_step(theta, theta_dot, t, actions, env=None, step_fn=None):
+    step_fn = step_fn or jax.vmap((env or JaxPendulum()).step)
+    state = JaxPendulumState(jnp.asarray(theta), jnp.asarray(theta_dot), jnp.asarray(t))
+    keys = jax.random.split(jax.random.PRNGKey(0), len(theta))
+    return step_fn(state, jnp.asarray(actions), keys)
+
+
+def _pendulum_case(B=64, seed=0):
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(-3 * np.pi, 3 * np.pi, B).astype(np.float32)  # beyond +-pi too
+    theta_dot = rng.uniform(-9, 9, B).astype(np.float32)  # some beyond max_speed
+    t = rng.integers(0, 199, B).astype(np.int32)
+    t[:4] = 199  # truncated this step
+    actions = rng.uniform(-3, 3, (B, 1)).astype(np.float32)  # clamped to +-2
+    return theta, theta_dot, t, actions
+
+
+@pytest.mark.parametrize("emit_torque_cost", [False, True])
+def test_pendulum_step_matches_jax(emit_torque_cost):
+    theta, theta_dot, t, actions = _pendulum_case()
+    jnew, jres = _jax_pendulum_step(
+        theta, theta_dot, t, actions, JaxPendulum(emit_torque_cost=emit_torque_cost)
+    )
+    new, res = Pendulum(emit_torque_cost=emit_torque_cost).step(
+        PendulumState(torch.from_numpy(theta), torch.from_numpy(theta_dot), torch.from_numpy(t)),
+        torch.from_numpy(actions),
+    )
+    np.testing.assert_allclose(new.theta.numpy(), np.asarray(jnew.theta), **PENDULUM_TOL)
+    np.testing.assert_allclose(new.theta_dot.numpy(), np.asarray(jnew.theta_dot), **PENDULUM_TOL)
+    np.testing.assert_array_equal(new.t.numpy(), np.asarray(jnew.t))
+    assert res.observation.shape == (64, 3) and res.observation.dtype == torch.float32
+    np.testing.assert_allclose(res.observation.numpy(), np.asarray(jres.observation), **PENDULUM_TOL)
+    np.testing.assert_allclose(res.reward.numpy(), np.asarray(jres.reward), **PENDULUM_TOL)
+    np.testing.assert_array_equal(res.terminated.numpy(), np.asarray(jres.terminated))
+    np.testing.assert_array_equal(res.truncated.numpy(), np.asarray(jres.truncated))
+    assert res.truncated[:4].all() and not res.truncated[4:].any() and not res.terminated.any()
+    assert (new.theta_dot.abs() <= 8.0).all()
+    if emit_torque_cost:
+        np.testing.assert_allclose(res.cost.numpy(), np.asarray(jres.cost), **PENDULUM_TOL)
+        assert (res.cost <= 1.0).all()  # the torque is clamped before the cost
+    else:
+        assert res.cost is None and jres.cost is None
+
+
+def test_pendulum_angle_normalize_is_a_floor_mod():
+    x = np.float32([np.pi, -np.pi, 3 * np.pi, -3 * np.pi, 2 * np.pi, -2 * np.pi, 0.0,
+                    4.0, -4.0, 10.5, -10.5, 1e3, -1e3, 3.1, -3.1])
+    ours = _angle_normalize(torch.from_numpy(x)).numpy()
+    ref = np.asarray(jax_angle_normalize(jnp.asarray(x)))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
+    assert (ours >= -np.float32(np.pi)).all() and (ours < np.float32(np.pi)).all()
+    # fmod would keep the sign of a negative argument: -4 -> -4 + 2pi, not -4.
+    np.testing.assert_allclose(ours[8], -4.0 + 2 * np.pi, atol=1e-5)
+
+
+def test_pendulum_rollout_across_truncation_matches_jax():
+    # 250 steps under random torques with the vector env's auto-reset to
+    # given reset states: every env truncates at step 200 and restarts. The
+    # dynamics are chaotic and would amplify the per-step ulp differences,
+    # so each JAX step starts from the port's state and is held at 1e-5.
+    B = 16
+    rng = np.random.default_rng(3)
+    theta = rng.uniform(-np.pi, np.pi, B).astype(np.float32)
+    theta_dot = rng.uniform(-1, 1, B).astype(np.float32)
+    fresh_theta = rng.uniform(-np.pi, np.pi, B).astype(np.float32)
+    fresh_dot = rng.uniform(-1, 1, B).astype(np.float32)
+    venv = VectorEnv(Pendulum(), B, torch.device("cpu"))
+    fresh_state = PendulumState(
+        torch.from_numpy(fresh_theta), torch.from_numpy(fresh_dot), torch.zeros(B, dtype=torch.int32)
+    )
+    fresh = (fresh_state, Pendulum._obs(fresh_state.theta, fresh_state.theta_dot))
+    state = PendulumState(torch.from_numpy(theta), torch.from_numpy(theta_dot), torch.zeros(B, dtype=torch.int32))
+    jstep = jax.jit(jax.vmap(JaxPendulum().step))
+    for step in range(250):
+        actions = rng.uniform(-2, 2, (B, 1)).astype(np.float32)
+        jnew, jres = _jax_pendulum_step(
+            state.theta.numpy(), state.theta_dot.numpy(), state.t.numpy(), actions, step_fn=jstep
+        )
+        state, res, next_obs = venv.step(state, torch.from_numpy(actions), fresh=fresh)
+        done = np.asarray(jres.done)
+        np.testing.assert_array_equal(res.done.numpy(), done)
+        assert done.all() == (step == 199) and done.any() == (step == 199)
+        np.testing.assert_allclose(res.reward.numpy(), np.asarray(jres.reward), **PENDULUM_TOL)
+        np.testing.assert_allclose(res.observation.numpy(), np.asarray(jres.observation), **PENDULUM_TOL)
+        jth = np.where(done, fresh_theta, np.asarray(jnew.theta))
+        jdot = np.where(done, fresh_dot, np.asarray(jnew.theta_dot))
+        np.testing.assert_allclose(state.theta.numpy(), jth, **PENDULUM_TOL)
+        np.testing.assert_allclose(state.theta_dot.numpy(), jdot, **PENDULUM_TOL)
+        np.testing.assert_array_equal(state.t.numpy(), np.where(done, 0, np.asarray(jnew.t)))
+        if step == 199:
+            np.testing.assert_array_equal(next_obs.numpy(), fresh[1].numpy())
+            assert not np.allclose(res.observation.numpy(), fresh[1].numpy())  # terminal obs kept
+    assert (state.t == 50).all()
+
+
+def test_pendulum_reset_and_spaces():
+    env, cpu = Pendulum(), torch.device("cpu")
+    state, obs = env.reset(4096, make_generator(0, cpu), cpu)
+    assert obs.shape == (4096, 3) and obs.dtype == torch.float32
+    assert (state.theta >= -np.pi).all() and (state.theta < np.pi).all() and state.theta.std() > 1.5
+    assert (state.theta_dot >= -1).all() and (state.theta_dot < 1).all()
+    assert (state.t == 0).all() and state.t.dtype == torch.int32
+    torch.testing.assert_close(obs, Pendulum._obs(state.theta, state.theta_dot), rtol=0, atol=0)
+    _, again = env.reset(4096, make_generator(0, cpu), cpu)
+    assert torch.equal(obs, again)  # seeded
+    jenv = JaxPendulum()
+    space = env.action_space
+    assert space.is_continuous and space.action_dim == space.dim == 1 and not hasattr(space, "n")
+    np.testing.assert_array_equal(space.low.numpy(), np.asarray(jenv.action_space.low))
+    np.testing.assert_array_equal(space.high.numpy(), np.asarray(jenv.action_space.high))
+    np.testing.assert_array_equal(
+        env.observation_space.high.numpy(), np.asarray(jenv.observation_space.high)
+    )
+    assert env.observation_dim == 3 and env.max_episode_steps == jenv.max_episode_steps == 200

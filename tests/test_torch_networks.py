@@ -1,7 +1,9 @@
-"""Q-networks of the PyTorch port against the JAX package's: flax params
+"""Networks of the PyTorch port against the JAX package's: flax params
 carried across with `pearl_tpu_torch.utils.jax_params` give the same `q_all`
-for `MultiHeadQValueNetwork` and `VanillaQValueNetwork`, and the MLP's
-init and `select_index_last` follow the reference.
+for `MultiHeadQValueNetwork` and `VanillaQValueNetwork`, the same actions,
+samples (on the same normal draws) and log-probabilities for the continuous
+actors, and the same `q_both`/`q_min` for `TwinCritic`; the inits and
+`select_index_last` follow the reference.
 """
 
 import jax
@@ -10,18 +12,31 @@ import numpy as np
 import pytest
 import torch
 
+from pearl_tpu.neural_networks.actor_networks import (
+    GaussianActorNetwork as JaxGaussian,
+    VanillaContinuousActorNetwork as JaxDeterministic,
+)
 from pearl_tpu.neural_networks.common import select_index_last as jax_select
 from pearl_tpu.neural_networks.q_value_networks import (
     MultiHeadQValueNetwork as JaxMultiHead,
     VanillaQValueNetwork as JaxVanilla,
 )
+from pearl_tpu.neural_networks.twin_critic import TwinCritic as JaxTwin
 from pearl_tpu_torch.neural_networks import (
     MLP,
+    GaussianActorNetwork,
     MultiHeadQValueNetwork,
+    TwinCritic,
+    VanillaContinuousActorNetwork,
     VanillaQValueNetwork,
     select_index_last,
 )
-from pearl_tpu_torch.utils.jax_params import load_flax_q_params
+from pearl_tpu_torch.utils.jax_params import (
+    load_flax_deterministic_actor_params,
+    load_flax_gaussian_actor_params,
+    load_flax_q_params,
+    load_flax_twin_critic_params,
+)
 
 torch.set_num_threads(1)
 
@@ -107,3 +122,156 @@ def test_select_index_last_matches_jax():
     ref = np.asarray(jax_select(jnp.asarray(values), jnp.asarray(index)))
     np.testing.assert_array_equal(ours, ref)  # x*1 + 0*y is exact
     np.testing.assert_array_equal(ours, values[np.arange(50), index])
+
+
+# The continuous-control networks: tanh, exp and log of XLA and PyTorch may
+# differ by an ulp on top of the summation order.
+AC_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _continuous_inputs(B=40, state_dim=3, action_dim=2, seed=1):
+    rng = np.random.default_rng(seed)
+    state = rng.standard_normal((B, state_dim)).astype(np.float32)
+    low = np.float32([-2.0, -0.5][:action_dim])
+    high = np.float32([2.0, 1.5][:action_dim])
+    action = rng.uniform(low, high, (B, action_dim)).astype(np.float32)
+    action[0] = low  # at the box's edges: atanh of a clipped +-(1 - 1e-6)
+    action[1] = high
+    return state, action, low, high
+
+
+@pytest.mark.parametrize("hidden", [(64, 64), (32, 16, 8)])
+def test_gaussian_actor_matches_jax(hidden):
+    state, action, low, high = _continuous_inputs()
+    jnet, net = JaxGaussian(hidden_dims=hidden), GaussianActorNetwork(hidden_dims=hidden)
+    params = jnet.init(jax.random.PRNGKey(2), 3, 2)
+    module = net.init(torch.Generator().manual_seed(0), 3, 2)
+    load_flax_gaussian_actor_params(module, _np_tree(params))
+    key = jax.random.PRNGKey(9)
+    eps = np.asarray(jax.random.normal(key, (40, 2)))
+    j = [jnp.asarray(x) for x in (state, action, low, high)]
+    t = [torch.from_numpy(x) for x in (state, action, low, high)]
+    ref_mu, ref_log_std = jnet._dist(params, j[0], 2)
+    ref_a, ref_lp = jnet.sample_action(params, j[0], key, j[2], j[3])
+    with torch.no_grad():
+        mu, log_std = module(t[0])
+        a, lp = net.sample_action(module, t[0], None, t[2], t[3], noise=torch.tensor(eps))
+        mean = net.mean_action(module, t[0], t[2], t[3])
+        glp = net.get_log_probability(module, t[0], t[1], t[2], t[3])
+    np.testing.assert_allclose(mu.numpy(), np.asarray(ref_mu), **AC_TOL)
+    np.testing.assert_allclose(log_std.numpy(), np.asarray(ref_log_std), **AC_TOL)
+    assert (log_std >= -5.0).all() and (log_std <= 2.0).all()
+    assert a.shape == (40, 2) and lp.shape == (40,)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ref_a), **AC_TOL)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), **AC_TOL)
+    np.testing.assert_allclose(
+        mean.numpy(), np.asarray(jnet.mean_action(params, j[0], j[2], j[3])), **AC_TOL
+    )
+    ref_glp = np.asarray(jnet.get_log_probability(params, *j))
+    np.testing.assert_allclose(glp.numpy()[2:], ref_glp[2:], **AC_TOL)
+    # Rows 0 and 1 sit on the box's edges, where both packages clip to
+    # +-(1 - 1e-6) and take atanh there (about 7.25): an ulp of that value
+    # (5e-7) is multiplied by (pre_tanh - mu) / std^2 in the Gaussian term,
+    # which reaches 1e3 here; rtol 1e-4 of the result.
+    np.testing.assert_allclose(glp.numpy()[:2], ref_glp[:2], rtol=1e-4, atol=1e-5)
+    # log pi of the sampled action recovered through atanh is the sample's.
+    with torch.no_grad():
+        again = net.get_log_probability(module, t[0], a, t[2], t[3])
+    inner = (a - t[2]).abs().min(-1).values.gt(1e-3) & (t[3] - a).abs().min(-1).values.gt(1e-3)
+    torch.testing.assert_close(again[inner], lp[inner], rtol=1e-3, atol=1e-3)
+
+
+def test_gaussian_actor_sample_is_reparameterised_and_seeded():
+    state, _, low, high = _continuous_inputs()
+    net = GaussianActorNetwork()
+    module = net.init(torch.Generator().manual_seed(0), 3, 2)
+    a, lp = net.sample_action(
+        module, torch.from_numpy(state), torch.Generator().manual_seed(4),
+        torch.from_numpy(low), torch.from_numpy(high),
+    )
+    (lp.sum() + a.sum()).backward()
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in module.parameters())
+    again, _ = net.sample_action(
+        module, torch.from_numpy(state), torch.Generator().manual_seed(4),
+        torch.from_numpy(low), torch.from_numpy(high),
+    )
+    assert torch.equal(a, again)
+    assert ((a >= torch.from_numpy(low)) & (a <= torch.from_numpy(high))).all()
+
+
+def test_deterministic_actor_matches_jax():
+    state, _, low, high = _continuous_inputs(action_dim=1)
+    jnet, net = JaxDeterministic(), VanillaContinuousActorNetwork()
+    params = jnet.init(jax.random.PRNGKey(3), 3, 1)
+    module = net.init(torch.Generator().manual_seed(0), 3, 1)
+    load_flax_deterministic_actor_params(module, _np_tree(params))
+    ref = np.asarray(jnet.action(params, jnp.asarray(state), jnp.asarray(low), jnp.asarray(high)))
+    with torch.no_grad():
+        a = net.action(module, torch.from_numpy(state), torch.from_numpy(low), torch.from_numpy(high))
+        s, lp = net.sample_action(
+            module, torch.from_numpy(state), None, torch.from_numpy(low), torch.from_numpy(high)
+        )
+    np.testing.assert_allclose(a.numpy(), ref, **AC_TOL)
+    assert torch.equal(s, a) and lp.shape == (40,) and (lp == 0).all()
+    assert ((a >= -2.0) & (a <= 2.0)).all()
+
+
+@pytest.mark.parametrize("hidden", [(64, 64), (16,)])
+def test_twin_critic_matches_jax(hidden):
+    state, action, _, _ = _continuous_inputs()
+    jnet, net = JaxTwin(hidden_dims=hidden), TwinCritic(hidden_dims=hidden)
+    params = jnet.init(jax.random.PRNGKey(4), 3, 2)
+    module = net.init(torch.Generator().manual_seed(0), 3, 2)
+    load_flax_twin_critic_params(module, _np_tree(params))
+    js, ja = jnp.asarray(state), jnp.asarray(action)
+    ref1, ref2 = jnet.q_both(params, js, ja)
+    with torch.no_grad():
+        q1, q2 = net.q_both(module, torch.from_numpy(state), torch.from_numpy(action))
+        qmin = net.q_min(module, torch.from_numpy(state), torch.from_numpy(action))
+    assert q1.shape == q2.shape == (40,)
+    np.testing.assert_allclose(q1.numpy(), np.asarray(ref1), **AC_TOL)
+    np.testing.assert_allclose(q2.numpy(), np.asarray(ref2), **AC_TOL)
+    np.testing.assert_allclose(qmin.numpy(), np.asarray(jnet.q_min(params, js, ja)), **AC_TOL)
+    assert not np.allclose(q1.numpy(), q2.numpy())  # two members, two sets of weights
+
+
+def test_continuous_inits_and_loaders_follow_the_reference():
+    gen = torch.Generator().manual_seed(0)
+    global_rng = torch.get_rng_state()
+    actor = GaussianActorNetwork().init(gen, 3, 1)
+    twin = TwinCritic().init(gen, 3, 1)
+    assert torch.equal(torch.get_rng_state(), global_rng)  # draws only from `gen`
+    # The trunk is an MLP (xavier) with a relu on its last layer; the heads
+    # are bare flax Dense layers: lecun-normal, truncated at 2 sigma.
+    assert actor.MLP_0.layer_names == ["dense_0", "dense_out"]
+    assert actor.MLP_0.last_activation == "relu"
+    for head in (actor.mu, actor.log_std):
+        std = (1 / 64) ** 0.5 / 0.87962566103423978
+        assert head.weight.shape == (1, 64) and (head.bias == 0).all()
+        assert head.weight.abs().max() <= 2 * std
+    # Twin: flax's stacked layout, (2, in, out); xavier per member, zero bias.
+    shapes = {n: tuple(p.shape) for n, p in twin.named_parameters()}
+    assert shapes == {
+        "MLP_0.dense_0.kernel": (2, 4, 64), "MLP_0.dense_0.bias": (2, 64),
+        "MLP_0.dense_1.kernel": (2, 64, 64), "MLP_0.dense_1.bias": (2, 64),
+        "MLP_0.dense_out.kernel": (2, 64, 1), "MLP_0.dense_out.bias": (2, 1),
+    }
+    k = twin.MLP_0.dense_1.kernel
+    assert k.abs().max() <= (6 / 128) ** 0.5 and not torch.equal(k[0], k[1])
+    assert all((layer.bias == 0).all() for layer in twin.MLP_0.layers())
+    params = _np_tree(JaxTwin().init(jax.random.PRNGKey(0), 3, 1))
+    with pytest.raises(ValueError):  # not a twin tree
+        load_flax_twin_critic_params(twin, {"params": params})
+    with pytest.raises(ValueError):  # the members' leading 2 dropped
+        load_flax_twin_critic_params(
+            twin, jax.tree.map(lambda x: x[0], params)
+        )
+    with pytest.raises(ValueError):  # a Gaussian actor's tree needs its heads
+        load_flax_gaussian_actor_params(actor, {"MLP_0": {}})
+
+
+def test_mlp_last_activation():
+    mlp = MLP(3, (8,), 4, generator=torch.Generator().manual_seed(0), last_activation="tanh")
+    plain = MLP(3, (8,), 4, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(5, 3, generator=torch.Generator().manual_seed(1)) * 10
+    torch.testing.assert_close(mlp(x), torch.tanh(plain(x)), rtol=0, atol=0)

@@ -1,9 +1,12 @@
-"""Env steps each package needs to reach CartPole 500 with the configuration
-of tests/integration/test_convergence.py:48-79 and the multi-head Q-network
-(the learning phase of chip_smoke.py). Not collected by pytest; run it:
+"""Env steps each package needs to reach its target with the configurations
+of tests/integration/test_convergence.py: CartPole 500 with the multi-head
+Q-network (:48-79, the learning phase of chip_smoke.py), and Pendulum -250
+with continuous SAC, DDPG or TD3 (:62-71, :161-187). Not collected by
+pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
+    python tests/torch_port_convergence.py --package torch --env pendulum --learner csac
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -16,72 +19,96 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG = dict(
+CARTPOLE = dict(
     num_envs=16, max_steps=250_000, learn_every_k_steps=2, learning_starts=500,
     target_return=500.0, target_window=20,
 )
+PENDULUM = dict(
+    num_envs=16, learn_every_k_steps=1, learning_starts=1_000, target_return=-250.0,
+    target_window=20,
+)
+# Per learner: its constructor arguments and its env-step budget.
+PENDULUM_LEARNERS = {
+    "csac": (dict(training_rounds=2, batch_size=100, entropy_coef=0.1,
+                  actor_learning_rate=1e-3, critic_learning_rate=1e-3), 300_000),
+    "ddpg": (dict(training_rounds=2, batch_size=100,
+                  actor_learning_rate=1e-3, critic_learning_rate=1e-3), 200_000),
+    "td3": (dict(training_rounds=2, batch_size=100,
+                 actor_learning_rate=1e-3, critic_learning_rate=1e-3), 200_000),
+}
+LEARNER_NAMES = {
+    "csac": "ContinuousSoftActorCritic", "ddpg": "DeepDeterministicPolicyGradient", "td3": "TD3",
+}
 
 
-def run_jax(seed):
-    import jax
+def _modules(package):
+    """The package's modules this script uses, by the same names."""
+    import importlib
 
-    jax.config.update("jax_platforms", "cpu")
-    from pearl_tpu.agent import PearlAgent
-    from pearl_tpu.envs import CartPole
-    from pearl_tpu.neural_networks.q_value_networks import MultiHeadQValueNetwork
-    from pearl_tpu.policy_learners.exploration_modules import EGreedyExploration
-    from pearl_tpu.policy_learners.sequential_decision_making import DeepQLearning
-    from pearl_tpu.replay_buffers.replay_buffer import BasicReplayBuffer
-    from pearl_tpu.training import online_learning
+    root = "pearl_tpu" if package == "jax" else "pearl_tpu_torch"
+    mod = lambda name: importlib.import_module(f"{root}.{name}")  # noqa: E731
+    if package == "jax":
+        import jax
 
-    agent = PearlAgent(
-        policy_learner=DeepQLearning(
-            q_network=MultiHeadQValueNetwork(), training_rounds=4, batch_size=128,
-            exploration=EGreedyExploration(epsilon=0.05),
-        ),
-        replay_buffer=BasicReplayBuffer(capacity=10_000),
+        jax.config.update("jax_platforms", "cpu")
+        q_networks = mod("neural_networks.q_value_networks")
+        buffers = mod("replay_buffers.replay_buffer")
+    else:
+        import torch
+
+        torch.set_num_threads(2)
+        q_networks = mod("neural_networks")
+        buffers = mod("replay_buffers")
+    return dict(
+        agent=mod("agent"), envs=mod("envs"), q_networks=q_networks,
+        exploration=mod("policy_learners.exploration_modules"),
+        learners=mod("policy_learners.sequential_decision_making"),
+        buffers=buffers, training=mod("training"),
     )
-    return online_learning(agent, CartPole(), seed=seed, **CONFIG)
 
 
-def run_torch(seed, device):
-    import torch
-
-    torch.set_num_threads(2)
-    from pearl_tpu_torch.agent import PearlAgent
-    from pearl_tpu_torch.envs import CartPole
-    from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
-    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
-    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
-    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
-    from pearl_tpu_torch.training import online_learning
-
-    agent = PearlAgent(
-        policy_learner=DeepQLearning(
-            q_network=MultiHeadQValueNetwork(), training_rounds=4, batch_size=128,
-            exploration=EGreedyExploration(epsilon=0.05),
-        ),
-        replay_buffer=BasicReplayBuffer(capacity=10_000),
+def run(package, env_name, learner_name, seed, device):
+    m = _modules(package)
+    extra = {} if package == "jax" else {"device": device}
+    if env_name == "cartpole":
+        learner = m["learners"].DeepQLearning(
+            q_network=m["q_networks"].MultiHeadQValueNetwork(), training_rounds=4,
+            batch_size=128, exploration=m["exploration"].EGreedyExploration(epsilon=0.05),
+        )
+        agent = m["agent"].PearlAgent(
+            policy_learner=learner, replay_buffer=m["buffers"].BasicReplayBuffer(capacity=10_000)
+        )
+        return m["training"].online_learning(
+            agent, m["envs"].CartPole(), seed=seed, **CARTPOLE, **extra
+        )
+    kwargs, budget = PENDULUM_LEARNERS[learner_name]
+    learner = getattr(m["learners"], LEARNER_NAMES[learner_name])(**kwargs)
+    agent = m["agent"].PearlAgent(
+        policy_learner=learner, replay_buffer=m["buffers"].BasicReplayBuffer(capacity=100_000)
     )
-    return online_learning(agent, CartPole(), seed=seed, device=device, **CONFIG)
+    return m["training"].online_learning(
+        agent, m["envs"].Pendulum(), max_steps=budget, seed=seed, **PENDULUM, **extra
+    )
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
+    parser.add_argument("--env", choices=("cartpole", "pendulum"), default="cartpole")
+    parser.add_argument("--learner", choices=tuple(PENDULUM_LEARNERS), default="csac",
+                        help="the Pendulum learner (ignored on CartPole)")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     for seed in args.seeds:
         t0 = time.perf_counter()
-        if args.package == "jax":
-            res = run_jax(seed)
-        else:
-            res = run_torch(seed, args.device)
+        res = run(args.package, args.env, args.learner, seed, args.device)
         print(json.dumps({
-            "package": args.package, "seed": seed, "reached_target": bool(res.reached_target),
-            "env_steps": int(res.total_steps), "episodes": int(len(res.episode_returns)),
+            "package": args.package, "env": args.env,
+            "learner": "dqn" if args.env == "cartpole" else args.learner, "seed": seed,
+            "reached_target": bool(res.reached_target), "env_steps": int(res.total_steps),
+            "episodes": int(len(res.episode_returns)),
             "seconds": round(time.perf_counter() - t0, 1),
         }), flush=True)
 
