@@ -39,7 +39,19 @@ Phases, each printing its seconds:
   8. ddpg and td3 runners: the same width, a warm-up and a timed call each,
      and TD3's delay gate held exactly;
   9. continuous learning: `online_learning` with continuous SAC must reach
-     Pendulum -250.
+     Pendulum -250;
+ 10. ppo runner: drives `make_compiled_runner` at the full width of the PPO
+     workload (CartPole, 131072 envs, a rollout of 8 steps, one round of
+     1024 rows per learn, 16 learns per call): a warm-up call and four timed
+     ones, the rollout buffer full before and empty after every learn, a
+     profiled call and the device kernels of one env step and of one learn;
+ 11. ppo learning: `online_learning` with PPO must reach CartPole 500;
+ 12. discrete actor-critic: discrete SAC at 1024 CartPole envs through the
+     runner, with one act, env step, observe and learn that must make no
+     host sync; then one learn each of REINFORCE and PPO with the CNN actor
+     and value network and of discrete SAC with the CNN twin critic, on
+     SyntheticAtari frames at 64 envs.
+ Phases 7-12 reach no kernel of the port (their products are PyTorch's).
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -1108,39 +1120,14 @@ def check_learn_metrics(agent, env, astate, gen, name):
 def run_csac_runner(card):
     """The CSAC runner: per-call rates, a profiled call (busy and idle share,
     the top kernels), and the device kernels of one env step and of one
-    learn, counted apart: each as the difference of two profiled windows of
-    different lengths, so that what a window's edges add or lose cancels."""
-    from pearl_tpu_torch.envs import VectorEnv
-
+    learn (`kernels_per_step_and_learn`)."""
     agent, env, run_fn, (astate, env_states, gen), rates = run_continuous_runner(card, "csac", 4)
     torch.cuda.synchronize()
     wall_s = CONT_SPL * CONT_LPC * CONT_B / statistics.median(rates)
     prof = profile_call(run_fn, astate, env_states, gen, wall_s)
-    bound = agent.for_env(env)
-    venv = VectorEnv(env, CONT_B, torch.device("cuda"))
-    box = {"astate": astate, "env_states": env_states}
-
-    def env_steps(n):
-        a, e = box["astate"], box["env_states"]
-        for _ in range(n):
-            a, choice = bound.act(a, gen)
-            e, result, next_obs = venv.step(e, choice.action, gen)
-            a = bound.observe(a, result, next_obs, gen)
-        box.update(astate=a, env_states=e)
-
-    def learns(n):
-        a = box["astate"]
-        for _ in range(n):
-            a, _ = bound.learn(a, gen)
-        box["astate"] = a
-
-    def per_unit(fn, short, long):
-        counts = [device_kernels(lambda: fn(n)) for n in (short, long)]
-        return (counts[1] - counts[0]) / (long - short), counts
-
-    per_step, step_counts = per_unit(env_steps, 8, 72)
-    per_learn, learn_counts = per_unit(learns, 4, 20)
-    astate = check_learn_metrics(agent, env, box["astate"], gen, "csac")
+    per_step, per_learn, step_counts, learn_counts, astate, _ = kernels_per_step_and_learn(
+        agent, env, astate, env_states, gen, CONT_B)
+    astate = check_learn_metrics(agent, env, astate, gen, "csac")
     per_call = CONT_SPL * CONT_LPC * per_step + CONT_LPC * per_learn
     print(f"csac runner: {per_step:.1f} device kernels per env step (windows of 8 and 72 steps: "
           f"{step_counts}), {per_learn:.1f} per learn (training_rounds=1, batch 1024; windows of "
@@ -1211,6 +1198,284 @@ def run_continuous_learning(card):
           f"{last:.1f} on {card}", flush=True)
     assert res.reached_target, "online_learning did not reach Pendulum -250 with continuous SAC"
     return res.total_steps, seconds
+
+
+def kernels_per_step_and_learn(agent, env, astate, env_states, gen, num_envs, after_learn=None):
+    """The device kernels of one env step and of one learn, counted apart:
+    each the difference of two profiled windows of different lengths (8 and
+    72 steps, 4 and 20 learns), so that what a window's edges add or lose
+    cancels. `after_learn(astate)` checks each learn's result. Returns
+    (per step, per learn, step counts, learn counts, the state after)."""
+    from pearl_tpu_torch.envs import VectorEnv
+
+    bound = agent.for_env(env)
+    venv = VectorEnv(env, num_envs, torch.device("cuda"))
+    box = {"astate": astate, "env_states": env_states}
+
+    def env_steps(n):
+        a, e = box["astate"], box["env_states"]
+        for _ in range(n):
+            a, choice = bound.act(a, gen)
+            e, result, next_obs = venv.step(e, choice.action, gen)
+            a = bound.observe(a, result, next_obs, gen)
+        box.update(astate=a, env_states=e)
+
+    def learns(n):
+        a = box["astate"]
+        for _ in range(n):
+            a, _ = bound.learn(a, gen)
+            if after_learn is not None:
+                after_learn(a)
+        box["astate"] = a
+
+    def per_unit(fn, short, long):
+        counts = [device_kernels(lambda: fn(n)) for n in (short, long)]
+        return (counts[1] - counts[0]) / (long - short), counts
+
+    per_step, step_counts = per_unit(env_steps, 8, 72)
+    per_learn, learn_counts = per_unit(learns, 4, 20)
+    return per_step, per_learn, step_counts, learn_counts, box["astate"], box["env_states"]
+
+
+# On-policy: the PPO workload of bench.py:316-341, nothing cut.
+PPO_B, PPO_SPL, PPO_LPC = 131_072, 8, 16
+
+
+def run_ppo_runner(card):
+    """`make_compiled_runner` at bench.py's PPO width: a warm-up call and four
+    timed calls, each synchronised and timed on its own, through an agent
+    that checks on the host (cursor and size are host integers) that every
+    learn finds one whole rollout and leaves the buffer empty; the actions
+    of each call's last rollout are indices in {0, 1}. Then a profiled call,
+    the device kernels of one env step and of one learn, and the losses of
+    one more learn."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.ops.fused_mlp import fused_mlp
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        ProximalPolicyOptimization,
+    )
+    from pearl_tpu_torch.replay_buffers import OnPolicyReplayBuffer
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    capacity = PPO_SPL * PPO_B
+
+    @dataclasses.dataclass(frozen=True, eq=False)
+    class CheckedAgent(PearlAgent):
+        learns: list = dataclasses.field(default_factory=lambda: [0])
+
+        def learn(self, astate, generator, indices=None):
+            replay = astate.replay
+            assert (replay.size, replay.cursor) == (capacity, 0), (replay.size, replay.cursor)
+            astate, metrics = super().learn(astate, generator, indices)
+            assert (astate.replay.size, astate.replay.cursor) == (0, 0)
+            self.learns[0] += 1
+            return astate, metrics
+
+    agent = CheckedAgent(
+        policy_learner=ProximalPolicyOptimization(training_rounds=1, batch_size=1024),
+        replay_buffer=OnPolicyReplayBuffer(capacity=capacity, num_envs=PPO_B),
+    )
+    env = CartPole()
+    init_fn, run_fn = make_compiled_runner(
+        agent, env, num_envs=PPO_B, steps_per_learn=PPO_SPL, learns_per_call=PPO_LPC
+    )
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, "cuda")
+    steps_per_call = PPO_SPL * PPO_LPC
+    fused_before = fused_mlp.launches
+
+    def check_call(astate, stats):
+        storage = astate.replay.storage
+        index = storage.action_index
+        assert ((index == 0) | (index == 1)).all() and torch.equal(storage.action[:, 0],
+                                                                   index.float())
+        assert stats["reward_sum"].item() == steps_per_call * PPO_B
+
+    t0 = time.perf_counter()
+    astate, env_states, stats = run_fn(astate, env_states, gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"ppo runner warm-up call: {time.perf_counter() - t0:.3f} s", flush=True)
+    check_call(astate, stats)
+    rates = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates.append(steps_per_call * PPO_B / (time.perf_counter() - t0))
+        check_call(astate, stats)
+    assert agent.learns[0] == 5 * PPO_LPC and astate.learner.step == 5 * PPO_LPC
+    assert fused_mlp.launches == fused_before  # this path reaches no kernel of the port
+    episodes = stats["episodes"].item()
+    assert episodes > 0, episodes
+    print(f"ppo runner: env-steps/s per timed call {', '.join(f'{r:.1f}' for r in rates)} "
+          f"(median {statistics.median(rates):.1f}); last call episodes={episodes}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
+    wall_s = steps_per_call * PPO_B / statistics.median(rates)
+    prof = profile_call(run_fn, astate, env_states, gen, wall_s)
+
+    def emptied(a):
+        assert (a.replay.size, a.replay.cursor) == (0, 0)
+
+    # The windows' learns read a rollout the steps before them pushed; each
+    # learn clears the buffer, so the plain agent counts them.
+    plain = PearlAgent(policy_learner=agent.policy_learner, replay_buffer=agent.replay_buffer)
+    per_step, per_learn, step_counts, learn_counts, astate, env_states = (
+        kernels_per_step_and_learn(plain, env, astate, env_states, gen, PPO_B, emptied))
+    astate = check_learn_metrics(agent, env, fill_rollout(plain, env, astate, env_states, gen,
+                                                          PPO_B, PPO_SPL), gen, "ppo")
+    per_call = steps_per_call * per_step + PPO_LPC * per_learn
+    print(f"ppo runner: {per_step:.1f} device kernels per env step (windows of 8 and 72 steps: "
+          f"{step_counts}), {per_learn:.1f} per learn (training_rounds=1, batch 1024 of "
+          f"{capacity} rows; windows of 4 and 20: {learn_counts}), so {per_call:.0f} per call "
+          f"besides the runner's own sums (the profiled call: {prof and prof['device_kernels']}) "
+          f"on {card}", flush=True)
+    return {"rates": rates, "profile": prof, "kernels_per_step": per_step,
+            "kernels_per_learn": per_learn}
+
+
+def fill_rollout(agent, env, astate, env_states, gen, num_envs, steps):
+    """`steps` env steps through `agent`, no learn: a whole rollout for an
+    on-policy buffer. Returns the agent state."""
+    from pearl_tpu_torch.envs import VectorEnv
+
+    bound = agent.for_env(env)
+    venv = VectorEnv(env, num_envs, torch.device("cuda"))
+    for _ in range(steps):
+        astate, choice = bound.act(astate, gen)
+        env_states, result, next_obs = venv.step(env_states, choice.action, gen)
+        astate = bound.observe(astate, result, next_obs, gen)
+    return astate
+
+
+def run_ppo_learning(card):
+    """PPO must reach CartPole 500 (test_convergence.py:135-146: 16 envs, a
+    rollout of 16, 20 rounds of 64, clip 0.1, learning rates 1e-4, learning
+    from the start, seed 42, within 400000 env steps)."""
+    import numpy as np
+
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        ProximalPolicyOptimization,
+    )
+    from pearl_tpu_torch.replay_buffers import OnPolicyReplayBuffer
+    from pearl_tpu_torch.training import online_learning
+
+    num_envs, rollout = 16, 16
+    agent = PearlAgent(
+        policy_learner=ProximalPolicyOptimization(
+            training_rounds=20, batch_size=64, epsilon=0.1,
+            actor_learning_rate=1e-4, critic_learning_rate=1e-4,
+        ),
+        replay_buffer=OnPolicyReplayBuffer(capacity=rollout * num_envs, num_envs=num_envs),
+    )
+    t0 = time.perf_counter()
+    res = online_learning(
+        agent, CartPole(), num_envs=num_envs, max_steps=400_000, learn_every_k_steps=rollout,
+        learning_starts=0, seed=42, target_return=500.0, target_window=20,
+    )
+    seconds = time.perf_counter() - t0
+    last = float(np.mean(res.episode_returns[-20:])) if len(res.episode_returns) else 0.0
+    print(f"ppo learning: reached_target={res.reached_target} after {res.total_steps} env "
+          f"steps in {seconds:.1f} s, {len(res.episode_returns)} episodes, last-20 mean return "
+          f"{last:.1f} on {card}", flush=True)
+    assert res.reached_target, "online_learning did not reach CartPole 500 with PPO"
+    return res.total_steps, seconds
+
+
+def run_discrete_actor_critic(card):
+    """Discrete SAC at 1024 CartPole envs through `make_compiled_runner` (a
+    warm-up and a timed call), then one act, env step, observe and learn
+    under `torch.cuda.set_sync_debug_mode("error")`: the actor's learning
+    rate, decayed at every observe, stays on the device. Then one learn each,
+    on SyntheticAtari's 84x84x4 frames at 64 envs, of REINFORCE and PPO with
+    the CNN actor and value network and of discrete SAC with the CNN actor
+    and twin critic. Every loss must be finite."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole, SyntheticAtari, VectorEnv
+    from pearl_tpu_torch.neural_networks import CNNActorNetwork, CNNTwinCritic, CNNValueNetwork
+    from pearl_tpu_torch.ops.fused_mlp import fused_mlp
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        REINFORCE, ProximalPolicyOptimization, SoftActorCritic,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, OnPolicyReplayBuffer
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    fused_before = fused_mlp.launches
+    num_envs, spl, lpc = 1_024, 8, 16
+    agent = PearlAgent(
+        policy_learner=SoftActorCritic(training_rounds=1, batch_size=1024),
+        replay_buffer=BasicReplayBuffer(capacity=16 * num_envs),
+    )
+    env = CartPole()
+    init_fn, run_fn = make_compiled_runner(
+        agent, env, num_envs=num_envs, steps_per_learn=spl, learns_per_call=lpc
+    )
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, "cuda")
+    lr = astate.learner.actor_opt.param_groups[0]["lr"]
+    assert lr.device.type == "cuda" and astate.learner.actor_opt.defaults["capturable"]
+    rates = []
+    for call in range(2):  # a warm-up and a timed call
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates.append(spl * lpc * num_envs / (time.perf_counter() - t0))
+    index = astate.replay.storage.action_index
+    assert ((index == 0) | (index == 1)).all()
+    bound = agent.for_env(env)
+    venv = VectorEnv(env, num_envs, torch.device("cuda"))
+    lr_before = lr.item()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        astate, choice = bound.act(astate, gen)
+        env_states, result, next_obs = venv.step(env_states, choice.action, gen)
+        astate = bound.observe(astate, result, next_obs, gen)
+        astate, metrics = bound.learn(astate, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    values = {k: v.item() for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in values.values()), values
+    assert lr is astate.learner.actor_opt.param_groups[0]["lr"] and 0 < lr.item() <= lr_before
+    print(f"discrete sac runner (1024 CartPole envs): env-steps/s warm-up {rates[0]:.1f}, "
+          f"timed {rates[1]:.1f}; one act, env step, observe and learn made no host sync; "
+          f"actor learning rate {lr.item():.6e} after {astate.learner.step} learns; "
+          + ", ".join(f"{k}={v:.6f}" for k, v in values.items()) + f" on {card}", flush=True)
+
+    n, steps = 64, 8
+    atari = SyntheticAtari()
+    learners = {
+        "reinforce (CNN actor and value)": (REINFORCE(
+            actor_network=CNNActorNetwork(), critic_network=CNNValueNetwork()), True),
+        "ppo (CNN actor and value)": (ProximalPolicyOptimization(
+            actor_network=CNNActorNetwork(), critic_network=CNNValueNetwork(),
+            training_rounds=2, batch_size=64), True),
+        "discrete sac (CNN actor and twin critic)": (SoftActorCritic(
+            actor_network=CNNActorNetwork(), critic_network=CNNTwinCritic(),
+            training_rounds=1, batch_size=64), False),
+    }
+    for name, (learner, on_policy) in learners.items():
+        buffer = (OnPolicyReplayBuffer(capacity=steps * n, num_envs=n) if on_policy
+                  else BasicReplayBuffer(capacity=steps * n))
+        cnn_agent = PearlAgent(policy_learner=learner, replay_buffer=buffer)
+        init_fn, run_fn = make_compiled_runner(
+            cnn_agent, atari, num_envs=n, steps_per_learn=steps, learns_per_call=1, learn=False
+        )
+        a, e = init_fn(0)
+        a, e, _ = run_fn(a, e, gen)  # one rollout of 8 steps, no learn
+        assert a.replay.size == steps * n
+        a, metrics = cnn_agent.for_env(atari).learn(a, gen)
+        values = {k: v.item() for k, v in metrics.items()}
+        assert values and all(math.isfinite(v) for v in values.values()), (name, values)
+        assert a.replay.size == (0 if on_policy else steps * n)
+        print(f"{name} on SyntheticAtari 84x84x4 at {n} envs, one learn: "
+              + ", ".join(f"{k}={v:.6f}" for k, v in values.items()), flush=True)
+    assert fused_mlp.launches == fused_before  # these paths reach no kernel of the port
+    return rates
 
 
 def print_kernel_resources(build_dir):
@@ -1318,6 +1583,18 @@ def main() -> int:
     t0 = time.perf_counter()
     run_continuous_learning(card)
     phase("continuous learning", t0)
+
+    t0 = time.perf_counter()
+    run_ppo_runner(card)
+    phase("ppo runner", t0)
+
+    t0 = time.perf_counter()
+    run_ppo_learning(card)
+    phase("ppo learning", t0)
+
+    t0 = time.perf_counter()
+    run_discrete_actor_critic(card)
+    phase("discrete actor-critic", t0)
 
     act = timing[ACT_SHAPE[0]]
     kernels = [{

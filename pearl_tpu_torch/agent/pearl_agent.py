@@ -351,8 +351,10 @@ class PearlAgent:
         return dataclasses.replace(astate, learner=learner_state, replay=replay_state), metrics
 
     def learn_batch(self, astate: AgentState, batch: TransitionBatch):
-        """Offline path: learner update then safety update on one batch."""
-        learner_state, metrics = self.policy_learner.learn_batch(astate.learner, batch)
+        """Offline path: the learner's `preprocess_batch`, its update, then the
+        safety update on the batch as given."""
+        learner_batch = self.policy_learner.preprocess_batch(astate.learner, batch)
+        learner_state, metrics = self.policy_learner.learn_batch(astate.learner, learner_batch)
         safety_state, s_metrics = self.safety_module.learn_batch(
             astate.safety, batch, learner=self.policy_learner, learner_state=learner_state
         )

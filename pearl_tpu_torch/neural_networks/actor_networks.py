@@ -1,9 +1,14 @@
-"""Continuous actor networks (port of
-`pearl_tpu/neural_networks/actor_networks.py`: the action-box helpers,
-`VanillaContinuousActorNetwork` and `GaussianActorNetwork`).
+"""Actor networks (port of `pearl_tpu/neural_networks/actor_networks.py`).
 
 Each network is a frozen-dataclass adapter over an `nn.Module`, with the
-reference's protocol:
+reference's protocol. The discrete actors (`VanillaActorNetwork`,
+`DynamicActionActorNetwork`, `CNNActorNetwork`):
+
+    init(generator, state_dim, action_dim, num_actions) -> nn.Module (params)
+    logits(params, state, actions (B, A, a), mask) -> (B, A)  (unavailable -> -inf)
+    get_policy_distribution(params, state, actions, mask) -> probs (B, A)
+
+The continuous actors (`VanillaContinuousActorNetwork`, `GaussianActorNetwork`):
 
     init(generator, state_dim, action_dim) -> nn.Module (params)
     sample_action(params, state, generator, low, high, noise=None)
@@ -14,8 +19,6 @@ reference's protocol:
 `sample_action` it is on the device. `noise`, when given, is the standard
 normal draw (B, d) the generator would have made: the tests hand both
 packages the same numbers. `low` and `high` are (d,) tensors on the device.
-The discrete actors (`VanillaActorNetwork`, `DynamicActionActorNetwork`,
-`CNNActorNetwork`) are not ported yet (ROADMAP Queue A, item 13).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from pearl_tpu_torch.neural_networks.common import MLP, dense, promoted_linear
+from pearl_tpu_torch.neural_networks.common import MLP, dense, nchw_images, promoted_linear
+from pearl_tpu_torch.neural_networks.q_value_networks import _CNNQNet
 
 LOG_STD_MIN, LOG_STD_MAX = -5.0, 2.0
 _EPS = 1e-6
@@ -53,6 +57,100 @@ def standard_normal(shape, like: torch.Tensor, generator, noise=None) -> torch.T
     if noise is not None:
         return noise
     return torch.randn(shape, generator=generator, device=like.device)
+
+
+def _masked(raw: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return raw if mask is None else torch.where(mask, raw, float("-inf"))
+
+
+class _LogitsNet(nn.Module):
+    """state -> one logit per action (flax `_LogitsNet`: `MLP_0`)."""
+
+    def __init__(self, state_dim, hidden_dims, num_actions, generator=None):
+        super().__init__()
+        self.MLP_0 = MLP(state_dim, hidden_dims, num_actions, generator)
+
+    def forward(self, state):
+        return self.MLP_0(state)
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaActorNetwork:
+    """Softmax policy over a fixed action set: an MLP with one logit per
+    action."""
+
+    hidden_dims: Sequence[int] = (64, 64)
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int) -> nn.Module:
+        del action_dim
+        return _LogitsNet(state_dim, tuple(self.hidden_dims), num_actions, generator)
+
+    def logits(self, params, state, actions, mask=None):
+        return _masked(params(state), mask)
+
+    def get_policy_distribution(self, params, state, actions, mask=None):
+        return torch.softmax(self.logits(params, state, actions, mask), dim=-1)
+
+
+class _PairScoreNet(nn.Module):
+    """concat(state, action) -> one score (flax `_PairScoreNet`: `MLP_0`)."""
+
+    def __init__(self, input_dim, hidden_dims, generator=None):
+        super().__init__()
+        self.MLP_0 = MLP(input_dim, hidden_dims, 1, generator)
+
+    def forward(self, x):
+        return self.MLP_0(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicActionActorNetwork:
+    """Scores each (state, action representation) pair and takes the softmax
+    over the available actions: the logits come from action features, not
+    fixed heads, so the action set may change."""
+
+    hidden_dims: Sequence[int] = (64, 64)
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int) -> nn.Module:
+        del num_actions
+        return _PairScoreNet(state_dim + action_dim, tuple(self.hidden_dims), generator)
+
+    def logits(self, params, state, actions, mask=None):
+        B, A = actions.shape[0], actions.shape[1]
+        s_rep = state[:, None, :].expand(B, A, state.shape[-1])
+        x = torch.cat([s_rep, actions.to(state.dtype)], dim=-1).reshape(B * A, -1)
+        return _masked(params(x).reshape(B, A), mask)
+
+    def get_policy_distribution(self, params, state, actions, mask=None):
+        return torch.softmax(self.logits(params, state, actions, mask), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNActorNetwork:
+    """Softmax policy over image observations: flat (H, W, C) states are
+    reshaped to images, scaled by 1/255 and run through the conv stack and
+    an MLP with one logit per action (the module of `CNNQValueNetwork`)."""
+
+    input_shape: Tuple[int, int, int] = (84, 84, 4)  # (H, W, C)
+    out_channels: Sequence[int] = (16, 32)
+    kernel_sizes: Sequence[int] = (8, 4)
+    strides: Sequence[int] = (4, 2)
+    paddings: Sequence[int] = (0, 0)
+    hidden_dims: Sequence[int] = (128,)
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int) -> nn.Module:
+        del state_dim, action_dim
+        return _CNNQNet(
+            tuple(self.input_shape), tuple(self.out_channels), tuple(self.kernel_sizes),
+            tuple(self.strides), tuple(self.paddings), tuple(self.hidden_dims), num_actions,
+            generator,
+        )
+
+    def logits(self, params, state, actions, mask=None):
+        return _masked(params(nchw_images(state, self.input_shape)), mask)
+
+    def get_policy_distribution(self, params, state, actions, mask=None):
+        return torch.softmax(self.logits(params, state, actions, mask), dim=-1)
 
 
 class _DeterministicNet(nn.Module):

@@ -2,8 +2,8 @@
 
 Only what the ported paths use: the relu MLP with an optional last
 activation (no layer norm, dropout or skip connections), the conv feature
-stack `ConvNet`, `select_index_last`, and the two initializers of flax's
-`Dense` and `Conv` layers.
+stack `ConvNet`, `nchw_images`, `select_index_last`, and the two
+initializers of flax's `Dense` and `Conv` layers.
 """
 
 from __future__ import annotations
@@ -133,6 +133,13 @@ class ConvNet(nn.Module):
             weight, bias = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
             x = F.relu(F.conv2d(x, weight, bias, stride=layer.stride, padding=layer.padding))
         return x.flatten(1)
+
+
+def nchw_images(state: torch.Tensor, input_shape: Sequence[int]) -> torch.Tensor:
+    """Flat (B, H*W*C) states, the reference's NHWC images flattened, as an
+    NCHW view for `conv2d`."""
+    H, W, C = input_shape
+    return state.reshape(state.shape[0], H, W, C).permute(0, 3, 1, 2)
 
 
 def select_index_last(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

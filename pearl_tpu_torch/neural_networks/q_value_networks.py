@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pearl_tpu_torch.neural_networks.common import MLP, ConvNet
+from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, nchw_images
 from pearl_tpu_torch.ops.conv_cache import cache_write, gather_sum
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp_from_module
 from pearl_tpu_torch.ops.layout_fence import copy_fence, masked_scale_fence, masked_scale_fence4
@@ -190,7 +190,7 @@ class CNNQValueNetwork:
             fc = self.frame_channels
             images = state.reshape(B, C // fc, H, W, fc).permute(0, 1, 4, 2, 3).reshape(B, C, H, W)
         else:
-            images = state.reshape(B, H, W, C).permute(0, 3, 1, 2)
+            images = nchw_images(state, self.input_shape)
         return params(images)
 
     # ------------------------------------------------ conv1-cache act path

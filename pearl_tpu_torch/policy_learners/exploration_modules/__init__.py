@@ -3,6 +3,7 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
     ExplorationModule,
     NoExploration,
     NormalDistributionExploration,
+    PropensityExploration,
     masked_argmax,
     uniform_index,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "ExplorationModule",
     "NoExploration",
     "NormalDistributionExploration",
+    "PropensityExploration",
     "masked_argmax",
     "uniform_index",
 ]

@@ -1,7 +1,7 @@
 """Exploration modules (port of
 `pearl_tpu/policy_learners/exploration_modules/common.py`: `masked_argmax`,
-`NoExploration`, `EGreedyExploration` and, for continuous actions,
-`NormalDistributionExploration`).
+`NoExploration`, `EGreedyExploration`, `PropensityExploration` and, for
+continuous actions, `NormalDistributionExploration`).
 
 Protocol, batched over B envs:
 
@@ -103,6 +103,30 @@ class EGreedyExploration(ExplorationModule):
         eps = self.current_epsilon(state)
         index = torch.where(explore_u < eps, random_index.to(torch.int32), exploit_index)
         return state + B, index
+
+
+def gumbel(shape, like: torch.Tensor, generator) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)) of `shape` on `like`'s device, u
+    uniform on [tiny, 1) from `generator`."""
+    u = torch.rand(shape, generator=generator, device=like.device)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
+
+
+@dataclasses.dataclass(frozen=True)
+class PropensityExploration(ExplorationModule):
+    """Sample from the policy's own probabilities (`scores` are
+    probabilities): a categorical draw over log(max(p, 1e-20)), unavailable
+    actions at -inf, taken as the argmax of logits plus Gumbel noise, as
+    `jax.random.categorical` draws it. `noise`, when given, is that Gumbel
+    noise (B, A)."""
+
+    def act(self, state, scores, exploit_index, mask, generator, noise=None):
+        logits = torch.log(torch.clamp(scores, min=1e-20))
+        if mask is not None:
+            logits = torch.where(mask, logits, float("-inf"))
+        if noise is None:
+            noise = gumbel(scores.shape, scores, generator)
+        return state, torch.argmax(logits + noise, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

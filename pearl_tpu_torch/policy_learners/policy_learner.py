@@ -11,7 +11,7 @@ representation module and history summarization module. Contract:
 
 `generator` in `init` is a CPU generator for the weight init; the others
 live on the device. `learn` is the reference's `training_rounds x {sample ->
-learn_batch}` loop as a Python loop.
+preprocess_batch -> learn_batch}` loop as a Python loop.
 """
 
 from __future__ import annotations
@@ -105,6 +105,12 @@ class PolicyLearner(abc.ABC):
     def learn_batch(self, state, batch: TransitionBatch):
         ...
 
+    def preprocess_batch(self, state, batch: TransitionBatch) -> TransitionBatch:
+        """The hook each sampled batch passes through before `learn_batch`
+        (in `learn`, and in `PearlAgent.learn_batch`): the identity, as in the
+        reference, where no learner overrides it."""
+        return batch
+
     def learn(
         self,
         state,
@@ -113,7 +119,7 @@ class PolicyLearner(abc.ABC):
         generator: Optional[torch.Generator],
         indices: Optional[torch.Tensor] = None,
     ):
-        """training_rounds x (sample -> learn_batch). `indices`
+        """training_rounds x (sample -> preprocess_batch -> learn_batch). `indices`
         (training_rounds, batch_size) replaces the sampled indices. Metrics
         are averaged over rounds and stay on the device."""
         rounds = []
@@ -124,6 +130,7 @@ class PolicyLearner(abc.ABC):
                 self.batch_size,
                 indices=None if indices is None else indices[r],
             )
+            batch = self.preprocess_batch(state, batch)
             state, metrics = self.learn_batch(state, batch)
             rounds.append({k: v for k, v in metrics.items() if k != "per_sample_td"})
         metrics = {k: torch.stack([m[k] for m in rounds]).mean() for k in rounds[0]}

@@ -11,6 +11,18 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.deep_td import (
     DeepTDState,
     DoubleDQN,
 )
+from pearl_tpu_torch.policy_learners.sequential_decision_making.ppo import (
+    ProximalPolicyOptimization,
+    gae_lambda_returns,
+)
+from pearl_tpu_torch.policy_learners.sequential_decision_making.reinforce import (
+    REINFORCE,
+    discounted_returns,
+)
+from pearl_tpu_torch.policy_learners.sequential_decision_making.sac import (
+    SoftActorCritic,
+    twin_q_all,
+)
 from pearl_tpu_torch.policy_learners.sequential_decision_making.sac_continuous import (
     AlphaState,
     ContinuousSoftActorCritic,
@@ -27,6 +39,12 @@ __all__ = [
     "DeepTDLearning",
     "DeepTDState",
     "DoubleDQN",
+    "ProximalPolicyOptimization",
+    "REINFORCE",
+    "SoftActorCritic",
     "TD3",
     "TD3BC",
+    "discounted_returns",
+    "gae_lambda_returns",
+    "twin_q_all",
 ]

@@ -1,6 +1,5 @@
 """Actor-critic base (port of
-`pearl_tpu/policy_learners/sequential_decision_making/actor_critic_base.py`,
-its continuous-action path).
+`pearl_tpu/policy_learners/sequential_decision_making/actor_critic_base.py`).
 
 Semantics kept from the reference:
 - Separate actor, critic and history-summarizer optimizers: AdamW (weight
@@ -19,28 +18,37 @@ Semantics kept from the reference:
   decay is cancelled with the update. The port steps the optimizer with zero
   gradients at a learning rate of 0, which is that, exactly. The actor
   target's soft update is gated the same way.
-- `act` on a continuous space: the mean action (`exploit`), else a base
-  action perturbed by the exploration module when it has `act_continuous`
-  (DDPG, TD3), else a draw from the stochastic policy (SAC). The action
-  index is a zero placeholder.
+- `act` on a discrete space: the actor's probabilities in float32, the
+  greedy index on `exploit`, else the exploration module's draw over them
+  (`PropensityExploration` by default), and the action is the space's
+  element at that index. On a continuous space: the mean action
+  (`exploit`), else a base action perturbed by the exploration module when
+  it has `act_continuous` (DDPG, TD3), else a draw from the stochastic
+  policy (SAC); the action index is a zero placeholder.
+- The default actor is `VanillaActorNetwork`; bound to a continuous space it
+  becomes a `GaussianActorNetwork` of the same widths (`actor`). The critic
+  is action-valued when it has `q_both` (twin critics), else state-valued
+  (PPO, REINFORCE).
 
 Randomness: the learner's own draws (policy samples inside the losses, TD3's
 target noise) come from a device `torch.Generator` in the state, seeded from
-the init generator, where the reference splits its state key. `act` draws
-from the generator it is given. `act` and `learn_batch` take optional
-pre-drawn standard normal noise (`noise=`): the tests hand both packages the
-same numbers. `learn_batch`'s is a dict with the keys "actor" (the actor
-loss's policy sample), "critic" (the critic loss's next-action sample),
-"target" (TD3's target-policy noise) and "alpha" (SAC's temperature step).
+the init generator, where the reference splits its state key. `act` and
+`learn` draw from the generator they are given. `act` and `learn_batch`
+take optional pre-drawn noise (`noise=`): the tests hand both packages the
+same numbers. `act`'s is standard normal (B, d) on a continuous space and
+the exploration module's Gumbel noise (B, A) on a discrete one.
+`learn_batch`'s is a dict with the keys "actor" (the actor loss's policy
+sample), "critic" (the critic loss's next-action sample), "target" (TD3's
+target-policy noise) and "alpha" (SAC's temperature step).
 
 Differences by design: the targets are copies, never aliases of the online
 networks (in place updates would move an alias too), the learn step counter
-is a host integer, and `act_dtype`'s cast of the actor is a copy kept in the
-state and recast only when the actor was written (`utils.pytree.synced_cast`).
+is a host integer, the space's elements and represented candidates are made
+on the device once at init (`PolicyLearner.action_tensors`), and
+`act_dtype`'s cast of the actor is a copy kept in the state and recast only
+when the actor was written (`utils.pytree.synced_cast`).
 
-Not ported: discrete action spaces (`PropensityExploration` and the discrete
-actors, ROADMAP Queue A item 13), `pmean_axis` (item 20) and the
-reward-constrained safety hook `preprocess_batch` (item 16).
+Not ported: `pmean_axis` (ROADMAP Queue A, item 20).
 """
 
 from __future__ import annotations
@@ -56,11 +64,15 @@ from pearl_tpu_torch.action_representation_modules import (
     ActionRepresentationModule,
     OneHotActionRepresentation,
 )
-from pearl_tpu_torch.neural_networks.actor_networks import GaussianActorNetwork, standard_normal
+from pearl_tpu_torch.neural_networks.actor_networks import (
+    GaussianActorNetwork,
+    VanillaActorNetwork,
+    standard_normal,
+)
 from pearl_tpu_torch.neural_networks.twin_critic import TwinCritic
 from pearl_tpu_torch.policy_learners.exploration_modules.common import (
     ExplorationModule,
-    NoExploration,
+    PropensityExploration,
 )
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
@@ -81,10 +93,12 @@ class ActorCriticState:
     summ_opt: Optional[torch.optim.Optimizer]  # None when the summarizer has no parameters
     explore_state: Any
     step: int  # learn_batch counter
-    low: torch.Tensor  # (d,) the action box on the device
-    high: torch.Tensor  # (d,)
+    low: Optional[torch.Tensor]  # (d,) the action box on the device; None when discrete
+    high: Optional[torch.Tensor]  # (d,)
     generator: torch.Generator  # the learner's own draws, on the device
     extra: Any = None  # per-algorithm state (SAC's temperature)
+    action_elements: Optional[torch.Tensor] = None  # (A, a) on the device; None when continuous
+    action_reps: Optional[torch.Tensor] = None  # (A, r) represented candidates
     # `actor_params` cast to `act_dtype`; None when `act_dtype` is unset.
     # Read it through `_act_actor`, which recasts it when the actor changed.
     act_actor: Optional[nn.Module] = None
@@ -94,8 +108,10 @@ def _parameters(params) -> List[nn.Parameter]:
     return list(params.parameters()) if isinstance(params, nn.Module) else []
 
 
-def _adamw(params: List[nn.Parameter], lr: float) -> torch.optim.AdamW:
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=WEIGHT_DECAY)
+def _adamw(params: List[nn.Parameter], lr, **options) -> torch.optim.AdamW:
+    return torch.optim.AdamW(
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=WEIGHT_DECAY, **options
+    )
 
 
 def apply_grads(optimizer: torch.optim.Optimizer, params, grads) -> None:
@@ -121,11 +137,10 @@ def frozen_step(optimizer: torch.optim.Optimizer, params) -> None:
 
 @dataclasses.dataclass(frozen=True, kw_only=True, eq=False)
 class ActorCriticBase(PolicyLearner):
-    actor_network: Any = GaussianActorNetwork()
+    actor_network: Any = VanillaActorNetwork()
     critic_network: Any = TwinCritic()
-    # The reference's default is PropensityExploration, which has no
-    # continuous branch; on a continuous space NoExploration acts the same.
-    exploration: ExplorationModule = NoExploration()
+    # No `act_continuous`: on a continuous space the policy's own sample.
+    exploration: ExplorationModule = PropensityExploration()
     action_representation: ActionRepresentationModule = OneHotActionRepresentation()
     actor_learning_rate: float = 1e-3
     critic_learning_rate: float = 1e-3
@@ -153,12 +168,15 @@ class ActorCriticBase(PolicyLearner):
     def is_continuous(self) -> bool:
         return self.action_space is not None and self.action_space.is_continuous
 
+    @property
+    def actor(self):
+        """The actor network; the discrete softmax default becomes a Gaussian
+        actor of the same widths on a continuous space."""
+        if self.is_continuous and isinstance(self.actor_network, VanillaActorNetwork):
+            return GaussianActorNetwork(hidden_dims=self.actor_network.hidden_dims)
+        return self.actor_network
+
     def _require_ported(self) -> None:
-        if self.action_space is not None and not self.is_continuous:
-            raise NotImplementedError(
-                "actor-critic learners on discrete action spaces (PropensityExploration, "
-                "the discrete actors) are not ported yet (ROADMAP Queue A, item 13)"
-            )
         if self.pmean_axis is not None:
             raise NotImplementedError("pmean_axis is not ported yet (ROADMAP Queue A, item 20)")
 
@@ -169,17 +187,37 @@ class ActorCriticBase(PolicyLearner):
         return dtype
 
     # ------------------------------------------------------------------ init
+    def _init_actor(self, generator, subj_dim, rep_dim, num_actions) -> nn.Module:
+        if self.is_continuous:
+            return self.actor.init(generator, subj_dim, self.action_space.action_dim)
+        return self.actor.init(generator, subj_dim, rep_dim, num_actions)
+
+    def _init_critic(self, generator, subj_dim, rep_dim) -> Optional[nn.Module]:
+        if self.critic_network is None:
+            return None
+        if hasattr(self.critic_network, "q_both"):
+            # An action-value (twin) critic: TwinCritic, CNNTwinCritic.
+            a_dim = self.action_space.action_dim if self.is_continuous else rep_dim
+            return self.critic_network.init(generator, subj_dim, a_dim)
+        return self.critic_network.init(generator, subj_dim)  # a state-value critic
+
+    def actor_optimizer(self, params: List[nn.Parameter], device) -> torch.optim.Optimizer:
+        return _adamw(params, self.actor_learning_rate)
+
     def init_extra(self, device):
         return None
 
     def init(self, generator, observation_dim: int, action_space, num_envs: int, device):
         self._require_ported()
-        subj_dim, rep_dim, _ = self.dims(observation_dim, action_space)
-        a_dim = action_space.action_dim
-        actor = self.actor_network.init(generator, subj_dim, a_dim).to(device)
-        critic = None
-        if self.critic_network is not None:
-            critic = self.critic_network.init(generator, subj_dim, a_dim).to(device)
+        subj_dim, rep_dim, num_actions = self.dims(observation_dim, action_space)
+        actor = self._init_actor(generator, subj_dim, rep_dim, num_actions).to(device)
+        critic = self._init_critic(generator, subj_dim, rep_dim)
+        critic = critic.to(device) if critic is not None else None
+        elements = reps = low = high = None
+        if self.is_continuous:
+            low, high = action_space.low.to(device), action_space.high.to(device)
+        else:
+            elements, reps = self.action_tensors(device)
         summ_params = self.history_summarizer.init_params(generator, observation_dim, rep_dim)
         summ = _parameters(summ_params)
         act_actor = None
@@ -198,7 +236,7 @@ class ActorCriticBase(PolicyLearner):
                 else None
             ),
             summarizer_params=summ_params,
-            actor_opt=_adamw(list(actor.parameters()), self.actor_learning_rate),
+            actor_opt=self.actor_optimizer(list(actor.parameters()), device),
             critic_opt=(
                 _adamw(list(critic.parameters()), self.critic_learning_rate)
                 if critic is not None
@@ -207,12 +245,21 @@ class ActorCriticBase(PolicyLearner):
             summ_opt=_adamw(summ, self.history_summarization_learning_rate) if summ else None,
             explore_state=self.exploration.init(num_envs),
             step=0,
-            low=action_space.low.to(device),
-            high=action_space.high.to(device),
+            low=low,
+            high=high,
             generator=torch.Generator(device=device).manual_seed(seed),
             extra=self.init_extra(device),
+            action_elements=elements,
+            action_reps=reps,
             act_actor=act_actor,
         )
+
+    @staticmethod
+    def represented_candidates(state: ActorCriticState, batch_size: int) -> torch.Tensor:
+        """Every candidate action under the action representation, (B, A, r):
+        a broadcast view of the (A, r) made at init, never a copy."""
+        reps = state.action_reps
+        return reps[None].expand((batch_size,) + tuple(reps.shape))
 
     # ------------------------------------------------------------------- act
     def _act_actor(self, state: ActorCriticState) -> nn.Module:
@@ -227,17 +274,23 @@ class ActorCriticBase(PolicyLearner):
         self, state: ActorCriticState, subjective_state, mask, generator, exploit: bool = False,
         noise: Optional[torch.Tensor] = None,
     ):
-        """`noise` (B, d) replaces the standard normal draw of the policy
-        sample or of the exploration noise. Where the reference draws both
-        (a stochastic actor under an exploration module) it draws them from
-        one key, so they are the same numbers: here too."""
+        """On a continuous space `noise` (B, d) replaces the standard normal
+        draw of the policy sample or of the exploration noise. Where the
+        reference draws both (a stochastic actor under an exploration module)
+        it draws them from one key, so they are the same numbers: here too.
+        On a discrete space `noise` is the exploration module's (B, A)
+        Gumbel noise."""
         self._require_ported()
-        net = self.actor_network
+        net = self.actor
         actor = self._act_actor(state)
         if state.act_actor is not None:
             subjective_state = subjective_state.to(self._act_dtype())
-        low, high = state.low, state.high
+        if not self.is_continuous:
+            return self._act_discrete(
+                state, actor, subjective_state, mask, generator, exploit, noise
+            )
         explore_state = state.explore_state
+        low, high = state.low, state.high
         if exploit:
             if hasattr(net, "mean_action"):
                 action = net.mean_action(actor, subjective_state, low, high)
@@ -262,6 +315,27 @@ class ActorCriticBase(PolicyLearner):
             ActionChoice(action=action, index=index),
         )
 
+    def _act_discrete(self, state, actor, subjective_state, mask, generator, exploit, noise):
+        candidates = self.represented_candidates(state, subjective_state.shape[0])
+        if state.act_actor is not None:
+            candidates = candidates.to(self._act_dtype())
+        probs = self.actor.get_policy_distribution(
+            actor, subjective_state, candidates, mask
+        ).to(torch.float32)
+        exploit_index = self.greedy_index(probs, mask)
+        explore_state = state.explore_state
+        if exploit:
+            index = exploit_index
+        else:
+            extra = {} if noise is None else {"noise": noise}
+            explore_state, index = self.exploration.act(
+                explore_state, probs, exploit_index, mask, generator, **extra
+            )
+        return (
+            dataclasses.replace(state, explore_state=explore_state),
+            ActionChoice(action=state.action_elements[index.long()], index=index),
+        )
+
     # ----------------------------------------------------------------- learn
     def actor_loss(self, state, actor_params, batch, subj, noise: Dict) -> torch.Tensor:
         raise NotImplementedError
@@ -270,12 +344,6 @@ class ActorCriticBase(PolicyLearner):
         self, state, critic_params, batch, subj, next_subj, noise: Dict
     ) -> torch.Tensor:
         raise NotImplementedError
-
-    def preprocess_batch(self, state, batch: TransitionBatch) -> TransitionBatch:
-        raise NotImplementedError(
-            "the reward-constrained safety hook (reward - lambda * cost) is not ported "
-            "yet (ROADMAP Queue A, item 16)"
-        )
 
     def learn_batch(
         self, state: ActorCriticState, batch: TransitionBatch,

@@ -33,12 +33,12 @@ class DeepDeterministicPolicyGradient(ActorCriticBase):
 
     def _next_action(self, state, next_subj, noise: Optional[torch.Tensor] = None):
         del noise
-        return self.actor_network.action(
+        return self.actor.action(
             state.actor_target_params, next_subj, state.low, state.high
         )
 
     def actor_loss(self, state, actor_params, batch, subj, noise: Dict):
-        action = self.actor_network.action(actor_params, subj, state.low, state.high)
+        action = self.actor.action(actor_params, subj, state.low, state.high)
         q1, _ = self.critic_network.q_both(state.critic_params, subj, action)
         return -torch.mean(q1)
 

@@ -13,7 +13,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -33,6 +33,27 @@ class AlphaState:
     optimizer: torch.optim.Adam
 
 
+def init_alpha(learner, device) -> Optional[AlphaState]:
+    """log(entropy_coef) and its Adam (lr `alpha_learning_rate`) when the
+    learner tunes its temperature, else None."""
+    if not learner.entropy_autotune:
+        return None
+    log_alpha = nn.Parameter(
+        torch.log(torch.tensor(learner.entropy_coef, dtype=torch.float32)).to(device)
+    )
+    return AlphaState(
+        log_alpha=log_alpha,
+        optimizer=torch.optim.Adam([log_alpha], lr=learner.alpha_learning_rate),
+    )
+
+
+def alpha_value(learner, state: ActorCriticState):
+    """The temperature: exp(log alpha) without gradient, or `entropy_coef`."""
+    if state.extra is None:
+        return learner.entropy_coef
+    return torch.exp(state.extra.log_alpha.detach())
+
+
 @dataclasses.dataclass(frozen=True, kw_only=True, eq=False)
 class ContinuousSoftActorCritic(ActorCriticBase):
     actor_network: Any = GaussianActorNetwork()
@@ -47,23 +68,13 @@ class ContinuousSoftActorCritic(ActorCriticBase):
         return -float(self.action_space.action_dim)
 
     def init_extra(self, device):
-        if not self.entropy_autotune:
-            return None
-        log_alpha = nn.Parameter(
-            torch.log(torch.tensor(self.entropy_coef, dtype=torch.float32)).to(device)
-        )
-        return AlphaState(
-            log_alpha=log_alpha,
-            optimizer=torch.optim.Adam([log_alpha], lr=self.alpha_learning_rate),
-        )
+        return init_alpha(self, device)
 
     def _alpha(self, state: ActorCriticState):
-        if state.extra is None:
-            return self.entropy_coef
-        return torch.exp(state.extra.log_alpha.detach())
+        return alpha_value(self, state)
 
     def actor_loss(self, state, actor_params, batch, subj, noise: Dict):
-        action, log_prob = self.actor_network.sample_action(
+        action, log_prob = self.actor.sample_action(
             actor_params, subj, state.generator, state.low, state.high, noise.get("actor")
         )
         q = self.critic_network.q_min(state.critic_params, subj, action)
@@ -71,7 +82,7 @@ class ContinuousSoftActorCritic(ActorCriticBase):
 
     def critic_loss(self, state, critic_params, batch, subj, next_subj, noise: Dict):
         with torch.no_grad():
-            next_action, next_log_prob = self.actor_network.sample_action(
+            next_action, next_log_prob = self.actor.sample_action(
                 state.actor_params, next_subj, state.generator, state.low, state.high,
                 noise.get("critic"),
             )
@@ -91,7 +102,7 @@ class ContinuousSoftActorCritic(ActorCriticBase):
             return state, {}
         with torch.no_grad():
             subj = self.history_summarizer.forward(state.summarizer_params, batch.state)
-            _, log_prob = self.actor_network.sample_action(
+            _, log_prob = self.actor.sample_action(
                 state.actor_params, subj, state.generator, state.low, state.high,
                 noise.get("alpha"),
             )

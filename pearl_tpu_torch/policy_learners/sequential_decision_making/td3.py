@@ -31,7 +31,7 @@ class TD3(DeepDeterministicPolicyGradient):
         """`noise` replaces the standard normal draw from the learner's
         generator."""
         low, high = state.low, state.high
-        base = self.actor_network.action(state.actor_target_params, next_subj, low, high)
+        base = self.actor.action(state.actor_target_params, next_subj, low, high)
         noise = standard_normal(base.shape, base, state.generator, noise) * self.actor_update_noise
         clip = self.actor_update_noise_clip
         noise = noise_scaling(low, high, torch.clamp(noise, -clip, clip))
@@ -43,7 +43,7 @@ class TD3BC(TD3):
     behavior_cloning_alpha: float = 2.5
 
     def actor_loss(self, state, actor_params, batch, subj, noise: Dict):
-        action = self.actor_network.action(actor_params, subj, state.low, state.high)
+        action = self.actor.action(actor_params, subj, state.low, state.high)
         q1, _ = self.critic_network.q_both(state.critic_params, subj, action)
         lam = self.behavior_cloning_alpha / (torch.mean(torch.abs(q1)).detach() + 1e-8)
         bc = torch.mean(torch.sum((action - batch.action) ** 2, dim=-1))

@@ -19,6 +19,13 @@ The continuous-control networks: `GaussianActorNetwork`'s tree is
 `VanillaContinuousActorNetwork`'s `{"MLP_0": {...}}`, and `TwinCritic`'s
 `{"MLP_0": {...}}` with a leading 2 on every leaf (the two members'
 stacked params), which the port keeps as they are.
+
+The discrete actors and the value networks: `VanillaActorNetwork`,
+`DynamicActionActorNetwork` and `VanillaValueNetwork` have `{"MLP_0":
+{...}}`, `CNNActorNetwork` and `CNNValueNetwork` the CNN Q-network's tree
+(`load_flax_discrete_actor_params`, `load_flax_value_params`);
+`CNNTwinCritic` has the CNN tree with a leading 2 on every leaf
+(`load_flax_cnn_twin_critic_params`).
 """
 
 from __future__ import annotations
@@ -137,18 +144,68 @@ def load_flax_cnn_q_params(net: nn.Module, params: Mapping) -> nn.Module:
             )
         layer.weight.copy_(weight)
         layer.bias.copy_(bias)
-    C, H, W = net.feature_shape
     mlp = {name: dict(layer) for name, layer in params["MLP_0"].items()}
     first = net.MLP_0.layer_names[0]
-    kernel = np.array(mlp[first]["kernel"], dtype=np.float32)
-    if kernel.shape[0] != H * W * C:
-        raise ValueError(
-            f"{first}: flax kernel {kernel.shape} does not take {H}x{W}x{C} features"
-        )
-    mlp[first]["kernel"] = (
-        kernel.reshape(H, W, C, -1).transpose(2, 0, 1, 3).reshape(H * W * C, -1)
+    mlp[first]["kernel"] = _hwc_rows_to_chw(
+        np.array(mlp[first]["kernel"], dtype=np.float32), net.feature_shape
     )
     load_flax_mlp(net.MLP_0, mlp)
+    return net
+
+
+def load_flax_discrete_actor_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a discrete actor's flax params (`{"MLP_0"}`, or the CNN's
+    `{"conv", "MLP_0"}`) into the port's module; returns `net`."""
+    return load_flax_cnn_q_params(net, params) if "conv" in params else load_flax_q_params(
+        net, params
+    )
+
+
+def load_flax_value_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a value network's flax params (`{"MLP_0"}`, or the CNN's
+    `{"conv", "MLP_0"}`) into the port's module; returns `net`."""
+    return load_flax_discrete_actor_params(net, params)
+
+
+def _hwc_rows_to_chw(kernel: np.ndarray, feature_shape) -> np.ndarray:
+    """The rows of an (..., H*W*C, out) kernel, in the reference's (H, W, C)
+    flatten order, permuted to the port's (C, H, W) order."""
+    C, H, W = feature_shape
+    lead = kernel.shape[:-2]
+    if kernel.shape[-2] != H * W * C:
+        raise ValueError(f"kernel {kernel.shape} does not take {H}x{W}x{C} features")
+    k = kernel.reshape(lead + (H, W, C, kernel.shape[-1]))
+    n = len(lead)
+    order = tuple(range(n)) + (n + 2, n, n + 1, n + 3)
+    return k.transpose(order).reshape(lead + (H * W * C, kernel.shape[-1]))
+
+
+@torch.no_grad()
+def load_flax_cnn_twin_critic_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `CNNTwinCritic`'s stacked flax params (the CNN tree, every leaf
+    with its leading 2) into the port's `_CNNTwinNet`; returns `net`. Conv
+    kernels (2, k, k, I, O) become (2, O, I, k, k), and the first MLP
+    kernel's rows move to the port's flatten order."""
+    _check_keys(params, ("conv", "MLP_0"))
+    _check_keys(params["conv"], net.conv.layer_names)
+    _check_keys(params["MLP_0"], net.MLP_0.layer_names)
+    leaves = []
+    for name, layer in zip(net.conv.layer_names, net.conv.layers()):
+        kernel = np.array(params["conv"][name]["kernel"], dtype=np.float32)
+        leaves += [(f"conv.{name}.weight", kernel.transpose(0, 4, 3, 1, 2), layer.weight),
+                   (f"conv.{name}.bias", params["conv"][name]["bias"], layer.bias)]
+    first = net.MLP_0.layer_names[0]
+    for name, layer in zip(net.MLP_0.layer_names, net.MLP_0.layers()):
+        kernel = np.array(params["MLP_0"][name]["kernel"], dtype=np.float32)
+        if name == first:
+            kernel = _hwc_rows_to_chw(kernel, net.feature_shape)
+        leaves += [(f"MLP_0.{name}.kernel", kernel, layer.kernel),
+                   (f"MLP_0.{name}.bias", params["MLP_0"][name]["bias"], layer.bias)]
+    for name, value, target in leaves:
+        value = _np(value)
+        if value.shape != target.shape:
+            raise ValueError(f"{name}: flax {tuple(value.shape)} != port {tuple(target.shape)}")
+        target.copy_(value)
     return net
 
 

@@ -24,6 +24,7 @@ from pearl_tpu.action_representation_modules import (
     OneHotActionRepresentation as JaxOneHot,
 )
 from pearl_tpu.agent import PearlAgent as JaxAgent
+from pearl_tpu.api.spaces import DiscreteActionSpace as JaxDiscreteSpace
 from pearl_tpu.envs import Pendulum as JaxPendulum
 from pearl_tpu.envs.pendulum import PendulumState as JaxPendulumState
 from pearl_tpu.policy_learners.exploration_modules.common import (
@@ -287,17 +288,50 @@ def test_targets_are_copies_and_opt_hyperparameters_are_the_references():
 
 
 def test_features_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ContinuousSoftActorCritic().bind(DiscreteActionSpace.discrete(2)).init(
-            torch.Generator(), 4, DiscreteActionSpace.discrete(2), 1, CPU
-        )
+    # A discrete space initialises as far as the reference's does: continuous
+    # SAC on it fails as the JAX learner fails (its Gaussian actor takes no
+    # action count), else both give the same shapes.
+    jl = JaxCSAC().bind(JaxDiscreteSpace.create(jnp.arange(2)))
+    tl = ContinuousSoftActorCritic().bind(DiscreteActionSpace.discrete(2))
+    try:
+        jstate = jl.init(jax.random.PRNGKey(0), 4, jl.action_space, 1)
+    except Exception as err:  # noqa: BLE001 - the port must fail the same way
+        with pytest.raises(type(err)):
+            tl.init(torch.Generator(), 4, tl.action_space, 1, CPU)
+    else:
+        tstate = tl.init(torch.Generator(), 4, tl.action_space, 1, CPU)
+        ref = traverse_util.flatten_dict(jax.tree.map(np.shape, jstate.actor_params))
+        assert {k: v.shape for k, v in _port_leaves(tstate.actor_params).items()} == ref
     with pytest.raises(NotImplementedError, match="item 20"):
         tl = ContinuousSoftActorCritic(pmean_axis="dp").bind(Pendulum().action_space)
         tl.init(torch.Generator(), 3, tl.action_space, 1, CPU)
-    _, _, tl, tstate = _learners("ddpg")
-    _, tbatch = _batches(_batch_data(0))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tl.preprocess_batch(tstate, tbatch)
+    # preprocess_batch is the identity, as the JAX learner's, and
+    # PearlAgent.learn_batch hands the learner what it returns.
+    jl, jstate, tl, tstate = _learners("ddpg")
+    jbatch, tbatch = _batches(_batch_data(0))
+    assert jl.preprocess_batch(jstate, jbatch) is jbatch
+    assert tl.preprocess_batch(tstate, tbatch) is tbatch
+    seen = []
+
+    class Preprocessing(DeepDeterministicPolicyGradient):
+        def preprocess_batch(self, state, batch):
+            seen.append(batch)
+            return dataclasses.replace(batch, reward=batch.reward + 1.0)
+
+        def learn_batch(self, state, batch, noise=None):
+            seen.append(batch)
+            return state, {}
+
+    agent = PearlAgent(policy_learner=Preprocessing()).for_env(Pendulum())
+    astate = agent.init(0, 3, 1, torch.zeros(1, 3), device="cpu")
+    agent.learn_batch(astate, tbatch)
+    assert seen[0] is tbatch and torch.equal(seen[1].reward, tbatch.reward + 1.0)
+    # PolicyLearner.learn: every round's sample passes through it.
+    seen.clear()
+    replay = agent.replay_buffer.push(astate.replay, tbatch)
+    rows = torch.arange(4)[None]
+    agent.policy_learner.learn(astate.learner, agent.replay_buffer, replay, None, indices=rows)
+    assert len(seen) == 2 and torch.equal(seen[1].reward, tbatch.reward[:4] + 1.0)
 
 
 # ------------------------------------------------------------------- acting

@@ -1,11 +1,12 @@
 """Env steps each package needs to reach its target with the configurations
 of tests/integration/test_convergence.py: CartPole 500 with the multi-head
-Q-network (:48-79, the learning phase of chip_smoke.py), and Pendulum -250
-with continuous SAC, DDPG or TD3 (:62-71, :161-187). Not collected by
-pytest; run it:
+Q-network (:48-79, the learning phase of chip_smoke.py) or with discrete
+SAC, PPO or REINFORCE (:124-158), and Pendulum -250 with continuous SAC,
+DDPG or TD3 (:62-71, :161-187). Not collected by pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
+    python tests/torch_port_convergence.py --package torch --learner ppo
     python tests/torch_port_convergence.py --package torch --env pendulum --learner csac
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
@@ -19,10 +20,25 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CARTPOLE = dict(
-    num_envs=16, max_steps=250_000, learn_every_k_steps=2, learning_starts=500,
-    target_return=500.0, target_window=20,
-)
+CARTPOLE = dict(target_return=500.0, target_window=20)
+# Per CartPole learner: its constructor arguments (None: DQN's), its buffer's
+# rollout length (None: a 10000-row BasicReplayBuffer) and its driver
+# arguments.
+CARTPOLE_LEARNERS = {
+    "dqn": (None, None, dict(num_envs=16, max_steps=250_000, learn_every_k_steps=2,
+                             learning_starts=500)),
+    "sac": (dict(training_rounds=2, batch_size=100, entropy_coef=0.01, entropy_autotune=False,
+                 actor_learning_rate=1e-3, critic_learning_rate=1e-3),
+            None, dict(num_envs=16, max_steps=500_000, learn_every_k_steps=2,
+                       learning_starts=500)),
+    "ppo": (dict(training_rounds=20, batch_size=64, epsilon=0.1, actor_learning_rate=1e-4,
+                 critic_learning_rate=1e-4),
+            16, dict(num_envs=16, max_steps=400_000, learn_every_k_steps=16,
+                     learning_starts=0)),
+    "reinforce": (dict(actor_learning_rate=1e-3, critic_learning_rate=1e-3),
+                  128, dict(num_envs=32, max_steps=3_000_000, learn_every_k_steps=128,
+                            learning_starts=0)),
+}
 PENDULUM = dict(
     num_envs=16, learn_every_k_steps=1, learning_starts=1_000, target_return=-250.0,
     target_window=20,
@@ -38,6 +54,7 @@ PENDULUM_LEARNERS = {
 }
 LEARNER_NAMES = {
     "csac": "ContinuousSoftActorCritic", "ddpg": "DeepDeterministicPolicyGradient", "td3": "TD3",
+    "sac": "SoftActorCritic", "ppo": "ProximalPolicyOptimization", "reinforce": "REINFORCE",
 }
 
 
@@ -53,17 +70,18 @@ def _modules(package):
         jax.config.update("jax_platforms", "cpu")
         q_networks = mod("neural_networks.q_value_networks")
         buffers = mod("replay_buffers.replay_buffer")
+        on_policy = mod("replay_buffers.on_policy")
     else:
         import torch
 
         torch.set_num_threads(2)
         q_networks = mod("neural_networks")
-        buffers = mod("replay_buffers")
+        buffers = on_policy = mod("replay_buffers")
     return dict(
         agent=mod("agent"), envs=mod("envs"), q_networks=q_networks,
         exploration=mod("policy_learners.exploration_modules"),
         learners=mod("policy_learners.sequential_decision_making"),
-        buffers=buffers, training=mod("training"),
+        buffers=buffers, on_policy=on_policy, training=mod("training"),
     )
 
 
@@ -71,15 +89,24 @@ def run(package, env_name, learner_name, seed, device):
     m = _modules(package)
     extra = {} if package == "jax" else {"device": device}
     if env_name == "cartpole":
-        learner = m["learners"].DeepQLearning(
-            q_network=m["q_networks"].MultiHeadQValueNetwork(), training_rounds=4,
-            batch_size=128, exploration=m["exploration"].EGreedyExploration(epsilon=0.05),
-        )
-        agent = m["agent"].PearlAgent(
-            policy_learner=learner, replay_buffer=m["buffers"].BasicReplayBuffer(capacity=10_000)
-        )
+        kwargs, rollout, driver = CARTPOLE_LEARNERS[learner_name]
+        if kwargs is None:
+            learner = m["learners"].DeepQLearning(
+                q_network=m["q_networks"].MultiHeadQValueNetwork(), training_rounds=4,
+                batch_size=128, exploration=m["exploration"].EGreedyExploration(epsilon=0.05),
+            )
+        else:
+            learner = getattr(m["learners"], LEARNER_NAMES[learner_name])(**kwargs)
+        if rollout is None:
+            buffer = m["buffers"].BasicReplayBuffer(capacity=10_000)
+        else:
+            num_envs = driver["num_envs"]
+            buffer = m["on_policy"].OnPolicyReplayBuffer(
+                capacity=rollout * num_envs, num_envs=num_envs
+            )
+        agent = m["agent"].PearlAgent(policy_learner=learner, replay_buffer=buffer)
         return m["training"].online_learning(
-            agent, m["envs"].CartPole(), seed=seed, **CARTPOLE, **extra
+            agent, m["envs"].CartPole(), seed=seed, **CARTPOLE, **driver, **extra
         )
     kwargs, budget = PENDULUM_LEARNERS[learner_name]
     learner = getattr(m["learners"], LEARNER_NAMES[learner_name])(**kwargs)
@@ -95,18 +122,24 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
     parser.add_argument("--env", choices=("cartpole", "pendulum"), default="cartpole")
-    parser.add_argument("--learner", choices=tuple(PENDULUM_LEARNERS), default="csac",
-                        help="the Pendulum learner (ignored on CartPole)")
+    parser.add_argument("--learner", choices=tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS),
+                        help="dqn, sac, ppo or reinforce on CartPole (default dqn); csac, "
+                        "ddpg or td3 on Pendulum (default csac)")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
+    learners = CARTPOLE_LEARNERS if args.env == "cartpole" else PENDULUM_LEARNERS
+    if args.learner is None:
+        args.learner = next(iter(learners))
+    if args.learner not in learners:
+        parser.error(f"--learner {args.learner} does not run on --env {args.env}")
     sys.path.insert(0, REPO)
     for seed in args.seeds:
         t0 = time.perf_counter()
         res = run(args.package, args.env, args.learner, seed, args.device)
         print(json.dumps({
             "package": args.package, "env": args.env,
-            "learner": "dqn" if args.env == "cartpole" else args.learner, "seed": seed,
+            "learner": args.learner, "seed": seed,
             "reached_target": bool(res.reached_target), "env_steps": int(res.total_steps),
             "episodes": int(len(res.episode_returns)),
             "seconds": round(time.perf_counter() - t0, 1),
