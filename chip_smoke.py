@@ -51,7 +51,26 @@ Phases, each printing its seconds:
      host sync; then one learn each of REINFORCE and PPO with the CNN actor
      and value network and of discrete SAC with the CNN twin critic, on
      SyntheticAtari frames at 64 envs.
- Phases 7-12 reach no kernel of the port (their products are PyTorch's).
+ 13. driver: `online_learning(stats="summary")` with the headline agent at
+     its width (bench.py:409-466: 131072 envs, 8 steps per learn, 64 chunks
+     per dispatch): a warm-up run of 2 dispatches, a timed run of 5 with
+     B1's launches by body (act tiled, learn rows), one dispatch timed
+     alone, one under `set_sync_debug_mode("error")` (the host fetch
+     excluded) and one profiled (the idle share);
+ 14. curves: the same with stats="curves" (bench.py:343-407): the sampled
+     stream (curve_capacity 131072) with a dispatch under the sync check and
+     a profiled one, the lossless configuration (1 chunk per dispatch),
+     which must drop no episode, and curves equal to full bit for bit at
+     1024 envs;
+ 15. deferred runner: `make_compiled_runner(deferred_push=True)` at the
+     headline width beside the per-step runner, in the order per-step,
+     deferred, deferred, per-step; one deferred driver dispatch under the
+     sync check;
+ 16. dqn family: Dueling DQN, QR-DQN risk-neutral and mean-variance, deep
+     SARSA, and the multi-head DQN with Warmup(Boltzmann) and with each
+     tie-breaking strategy, at 1024 CartPole envs through the runner.
+ Phases 7-12 reach no kernel of the port (their products are PyTorch's);
+ 13-15 reach B1 as the runner does, 16 through its multi-head DQNs.
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -66,6 +85,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet).
@@ -305,11 +325,17 @@ def profile_call(run_fn, astate, env_states, gen, wall_s):
     """Device time of one more runner call, by kernel, from torch.profiler;
     set against the unprofiled wall time of a call it gives the card's idle
     share. Outside the launch count: the count is read before this call."""
+    return profile_fn(lambda: run_fn(astate, env_states, gen), wall_s)
+
+
+def profile_fn(fn, wall_s, unit="runner call"):
+    """Device time of one `fn()` by kernel, set against `wall_s`, the
+    unprofiled wall time of one `fn()`: the card's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_fn(astate, env_states, gen)
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     n_device = 0
@@ -324,8 +350,8 @@ def profile_call(run_fn, astate, env_states, gen, wall_s):
         print("profile: the profiler saw no device time (idle share not measured)")
         return None
     print(
-        f"profile: device busy {busy_s * 1e3:.3f} ms per runner call in {n_device} "
-        f"kernels and copies, unprofiled wall {wall_s * 1e3:.3f} ms per call, "
+        f"profile: device busy {busy_s * 1e3:.3f} ms per {unit} in {n_device} "
+        f"kernels and copies, unprofiled wall {wall_s * 1e3:.3f} ms per {unit}, "
         f"idle share {1 - busy_s / wall_s:.4f}",
         flush=True,
     )
@@ -351,8 +377,6 @@ def device_kernels(fn):
 
 
 def run_learning(card):
-    import numpy as np
-
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import CartPole
     from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
@@ -1108,7 +1132,7 @@ def check_learn_metrics(agent, env, astate, gen, name):
     astate, metrics = agent.for_env(env).learn(astate, gen)
     values = {k: v.item() for k, v in metrics.items()}
     assert values and all(math.isfinite(v) for v in values.values()), values
-    extra = astate.learner.extra
+    extra = getattr(astate.learner, "extra", None)
     if extra is not None:
         assert math.isfinite(extra.log_alpha.item()), extra.log_alpha
         values["log_alpha"] = extra.log_alpha.item()
@@ -1172,8 +1196,6 @@ def run_continuous_learning(card):
     """Continuous SAC must reach Pendulum -250 (test_convergence.py:62-71,
     161-167: 16 envs, one learn per step after 1000, 2 rounds of 100, seed
     42, within 300000 env steps)."""
-    import numpy as np
-
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import Pendulum
     from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
@@ -1353,8 +1375,6 @@ def run_ppo_learning(card):
     """PPO must reach CartPole 500 (test_convergence.py:135-146: 16 envs, a
     rollout of 16, 20 rounds of 64, clip 0.1, learning rates 1e-4, learning
     from the start, seed 42, within 400000 env steps)."""
-    import numpy as np
-
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import CartPole
     from pearl_tpu_torch.policy_learners.sequential_decision_making import (
@@ -1478,6 +1498,328 @@ def run_discrete_actor_critic(card):
     return rates
 
 
+# The driver workloads of bench.py:343-466: bench.py:176-211's headline agent
+# at its width through `online_learning`, nothing cut.
+DRV_B, DRV_SPL, DRV_CPD, DRV_CAPACITY = 131_072, 8, 64, 2_097_152
+
+
+def headline_agent():
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+
+    return PearlAgent(
+        policy_learner=DeepQLearning(
+            q_network=MultiHeadQValueNetwork(), training_rounds=1, batch_size=1024
+        ),
+        replay_buffer=BasicReplayBuffer(capacity=DRV_CAPACITY),
+    )
+
+
+def reset_fused_counts():
+    from pearl_tpu_torch.ops.fused_mlp import fused_mlp
+
+    fused_mlp.launches = 0
+    fused_mlp.launches_by_body = dict.fromkeys(fused_mlp.launches_by_body, 0)
+
+
+def fused_counts():
+    from pearl_tpu_torch.ops.fused_mlp import fused_mlp
+
+    return {"launches": fused_mlp.launches, "by_body": dict(fused_mlp.launches_by_body)}
+
+
+def driver_body_counts(dispatches, cpd=DRV_CPD):
+    """B1's launches in `dispatches` dispatches of the headline driver: one
+    act a step (B = 131072, the tiled body), the online and the target Q of
+    each learn (B = 1024, the rows body)."""
+    return {"tiled": DRV_SPL * cpd * dispatches, "rows": 2 * cpd * dispatches, "general": 0}
+
+
+def timed_driver(agent, dispatches, seed, cpd=DRV_CPD, **kw):
+    """`online_learning` for `dispatches` dispatches at the headline width with
+    an unreachable target (early stopping live, as in bench.py), timed with
+    the host clock to a synchronise: set-up, the dispatches and every host
+    fetch, as a user's call."""
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.training import online_learning
+
+    t0 = time.perf_counter()
+    res = online_learning(
+        agent, CartPole(), num_envs=DRV_B, max_steps=DRV_B * DRV_SPL * cpd * dispatches,
+        learn_every_k_steps=DRV_SPL, chunks_per_dispatch=cpd, seed=seed, target_return=1e9,
+        target_window=20, **kw,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert res.total_steps == DRV_B * DRV_SPL * cpd * dispatches and not res.reached_target
+    return res, wall
+
+
+def driver_dispatcher(agent, astate, env_states, stats, deferred_push=False, seed=0):
+    """One more dispatch of the headline driver, continuing from `astate`:
+    the driver's own chunk program and device accounting, without the host
+    fetch that `online_learning` makes after it. Returns dispatch() -> the
+    dispatch's statistics tensor, left on the card."""
+    from pearl_tpu_torch.envs import CartPole, VectorEnv
+    from pearl_tpu_torch.training import online as online_mod
+    from pearl_tpu_torch.utils import make_generator
+
+    dev = torch.device("cuda")
+    env = CartPole()
+    bound = agent.for_env(env)
+    accounting = (online_mod._CurveStats(DRV_B, dev, DRV_B) if stats == "curves"
+                  else {"summary": online_mod._SummaryStats,
+                        "full": online_mod._FullStats}[stats](DRV_B, dev))
+    chunk = online_mod._make_chunk_fn(bound, VectorEnv(env, DRV_B, dev), DRV_SPL, True, False,
+                                      DRV_CPD, accounting, deferred_push)
+    gen = make_generator(seed, dev)
+    box = {"carry": (astate, env_states, torch.zeros(DRV_B, device=dev),
+                     tuple(torch.zeros(DRV_B, device=dev) for _ in range(3)))}
+
+    def dispatch():
+        *carry, stats_dev = chunk(*box["carry"], gen)
+        box["carry"] = tuple(carry)
+        return stats_dev
+
+    return dispatch
+
+
+def no_sync(fn):
+    """`fn()` under `torch.cuda.set_sync_debug_mode("error")`: any host sync
+    inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def run_driver(card):
+    """bench.py:409-466: `online_learning(stats="summary")` with the headline
+    agent at 131072 envs, 8 steps per learn, 64 chunks per dispatch: a
+    warm-up run of 2 dispatches and a timed run of 5, B1's launches by body
+    counted over the timed run; then one more dispatch timed alone, one
+    under the sync check and one profiled (the idle share)."""
+    agent = headline_agent()
+    res, wall = timed_driver(agent, 2, seed=0, stats="summary")
+    print(f"driver warm-up (2 dispatches, set-up included): {wall:.3f} s", flush=True)
+    reset_fused_counts()
+    res, wall = timed_driver(agent, 5, seed=1, stats="summary")
+    counts = fused_counts()
+    assert counts["by_body"] == driver_body_counts(5), counts
+    assert res.total_episodes > 0 and len(res.return_curve) == 5 * DRV_CPD
+    assert np.isfinite(res.return_curve).all() and res.mean_return >= 1.0, res.mean_return
+    assert res.episode_returns.shape == (0,)
+    sps = res.total_steps / wall
+    print(f"driver (stats='summary'): {sps:.1f} env-steps/s over 5 dispatches ({wall:.3f} s, "
+          f"set-up included), {res.total_episodes} episodes, mean return "
+          f"{res.mean_return:.3f}, last recent-return {res.return_curve[-1]:.3f}; B1 "
+          f"{counts['launches']} launches, by body {counts['by_body']} on {card}", flush=True)
+    dispatch = driver_dispatcher(agent, res.agent_state, res.env_states, "summary")
+    t0 = time.perf_counter()
+    rows = dispatch()
+    torch.cuda.synchronize()
+    dispatch_s = time.perf_counter() - t0
+    rows = no_sync(dispatch)
+    assert rows.shape == (DRV_CPD, 6) and torch.isfinite(rows).all()
+    prof = profile_fn(dispatch, dispatch_s, unit="summary dispatch")
+    print(f"driver: one dispatch {dispatch_s:.3f} s alone ({DRV_B * DRV_SPL * DRV_CPD / dispatch_s:.1f}"
+          f" env-steps/s); one dispatch made no host sync on {card}", flush=True)
+    return {"sps": sps, "counts": counts, "profile": prof, "dispatch_s": dispatch_s}
+
+
+def run_curves(card):
+    """bench.py:343-407: the same agent and width with stats="curves": the
+    sampled stream (curve_capacity 131072, 64 chunks per dispatch; a warm-up
+    run of 2 dispatches and a timed one of 5) and the lossless configuration
+    (1 chunk per dispatch: a warm-up run of 4 and a timed one of 20, which
+    must drop no episode); one sampled dispatch under the sync check; and
+    curves bit-equal to full on the card at 1024 envs over 3 dispatches."""
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.training import online_learning
+
+    out = {}
+    agent = headline_agent()
+    for name, cpd, warm, timed in (("sampled", DRV_CPD, 2, 5), ("lossless", 1, 4, 20)):
+        res, wall = timed_driver(agent, warm, seed=0, cpd=cpd, stats="curves",
+                                 curve_capacity=DRV_B)
+        reset_fused_counts()
+        res, wall = timed_driver(agent, timed, seed=1, cpd=cpd, stats="curves",
+                                 curve_capacity=DRV_B)
+        counts = fused_counts()
+        assert counts["by_body"] == driver_body_counts(timed, cpd), counts
+        drained = len(res.episode_returns)
+        assert res.total_episodes == drained + res.episodes_dropped and drained > 0
+        returns = res.episode_returns
+        assert (returns >= 1).all() and (returns <= 500).all() and (returns == np.round(returns)).all()
+        if name == "lossless":
+            assert res.episodes_dropped == 0, res.episodes_dropped
+        sps = res.total_steps / wall
+        print(f"curves driver, {name} ({cpd} chunks per dispatch, R={DRV_B}): {sps:.1f} "
+              f"env-steps/s over {timed} dispatches ({wall:.3f} s, set-up included); "
+              f"{res.total_episodes} episodes, {drained} drained, {res.episodes_dropped} "
+              f"dropped; B1 {counts['launches']} launches, by body {counts['by_body']} on {card}",
+              flush=True)
+        out[name] = {"sps": sps, "counts": counts, "episodes": res.total_episodes,
+                     "drained": drained, "dropped": res.episodes_dropped}
+        if name == "sampled":
+            dispatch = driver_dispatcher(agent, res.agent_state, res.env_states, "curves")
+            t0 = time.perf_counter()
+            dispatch()
+            torch.cuda.synchronize()
+            dispatch_s = time.perf_counter() - t0
+            snapshot = no_sync(dispatch)
+            assert snapshot.shape == (3 * DRV_B + 2,)
+            out["profile"] = profile_fn(dispatch, dispatch_s, unit="curves dispatch")
+            print(f"curves driver: one dispatch {dispatch_s:.3f} s alone "
+                  f"({DRV_B * DRV_SPL * DRV_CPD / dispatch_s:.1f} env-steps/s); one dispatch "
+                  f"made no host sync on {card}", flush=True)
+
+    # Curves equal full bit for bit at the same seed, on the card.
+    runs = {}
+    for stats in ("full", "curves"):
+        runs[stats] = online_learning(
+            headline_agent(), CartPole(), num_envs=1024, max_steps=1024 * 8 * 4 * 3,
+            learn_every_k_steps=8, chunks_per_dispatch=4, seed=5, stats=stats,
+            curve_capacity=4096,
+        )
+    full, curv = runs["full"], runs["curves"]
+    assert curv.episodes_dropped == 0 and len(full.episode_returns) > 0
+    for field in ("episode_returns", "episode_costs", "episode_risky_ratios"):
+        assert np.array_equal(getattr(full, field), getattr(curv, field)), field
+    for a, b in zip(full.agent_state.learner.params.parameters(),
+                    curv.agent_state.learner.params.parameters()):
+        assert torch.equal(a, b)
+    print(f"curves equal full bit for bit at 1024 envs over 3 dispatches: "
+          f"{len(full.episode_returns)} episodes, learner params equal on {card}", flush=True)
+    out["equal_episodes"] = len(full.episode_returns)
+    return out
+
+
+def run_deferred_runner(card):
+    """`make_compiled_runner(deferred_push=True)` at the headline width (64
+    learns per call) beside the per-step runner in the same phase: a warm-up
+    call each, then timed calls in the order per-step, deferred, deferred,
+    per-step; the two keep the same replay cursor and size and the same B1
+    launches by body. Then one deferred dispatch of the driver under the
+    sync check."""
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    runners = {}
+    for deferred in (False, True):
+        init_fn, run_fn = make_compiled_runner(
+            headline_agent(), CartPole(), num_envs=DRV_B, steps_per_learn=DRV_SPL,
+            learns_per_call=DRV_CPD, deferred_push=deferred,
+        )
+        astate, env_states = init_fn(0)
+        gen = make_generator(0, "cuda")
+        astate, env_states, _ = run_fn(astate, env_states, gen)  # warm-up
+        runners[deferred] = [run_fn, astate, env_states, gen]
+    torch.cuda.synchronize()
+    rates = {False: [], True: []}
+    counts = {}
+    for deferred in (False, True, True, False):
+        run_fn, astate, env_states, gen = runners[deferred]
+        reset_fused_counts()
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates[deferred].append(DRV_B * DRV_SPL * DRV_CPD / (time.perf_counter() - t0))
+        counts[deferred] = fused_counts()
+        assert counts[deferred]["by_body"] == driver_body_counts(1), counts
+        assert stats["reward_sum"].item() == DRV_B * DRV_SPL * DRV_CPD
+        runners[deferred][1:3] = [astate, env_states]
+    a, b = runners[False][1].replay, runners[True][1].replay
+    assert (a.cursor, a.size) == (b.cursor, b.size), ((a.cursor, a.size), (b.cursor, b.size))
+    index = b.storage.action_index
+    assert ((index == 0) | (index == 1)).all()
+    print(f"deferred runner ({DRV_B} envs, {DRV_CPD} learns per call), env-steps/s in the order "
+          f"run: "
+          f"per-step {rates[False][0]:.1f}, deferred {rates[True][0]:.1f}, deferred "
+          f"{rates[True][1]:.1f}, per-step {rates[False][1]:.1f}; B1 by body per call "
+          f"{counts[True]['by_body']} on {card}", flush=True)
+    agent = headline_agent()
+    _, astate, env_states, _ = runners[True]
+    dispatch = driver_dispatcher(agent, astate, env_states, "full", deferred_push=True)
+    stats_dev = no_sync(dispatch)
+    assert stats_dev.shape == (4, DRV_SPL * DRV_CPD, DRV_B)
+    print(f"deferred driver: one dispatch made no host sync on {card}", flush=True)
+    return {"rates": rates, "counts": counts[True]}
+
+
+def run_dqn_family(card):
+    """The rest of the DQN family's first half at 1024 CartPole envs through
+    `make_compiled_runner` (batch 1024, 8 steps per learn, 16 learns per
+    call): Dueling DQN, QR-DQN risk-neutral and mean-variance, deep SARSA
+    with its buffer, and the multi-head DQN with Warmup(Boltzmann) and with
+    each tie-breaking strategy. A warm-up and a timed call each; every stored
+    action index in {0, 1}; the losses of one more learn finite."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.neural_networks import DuelingQValueNetwork, MultiHeadQValueNetwork
+    from pearl_tpu_torch.policy_learners.exploration_modules import (
+        BoltzmannExploration, TiebreakingStrategy, Warmup,
+    )
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        DeepQLearning, DeepSARSA, QuantileRegressionDeepQLearning,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, SARSAReplayBuffer
+    from pearl_tpu_torch.safety_modules import QuantileNetworkMeanVarianceSafetyModule
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    n, spl, lpc = 1_024, 8, 16
+    kw = dict(training_rounds=1, batch_size=1024)
+    multihead = MultiHeadQValueNetwork()
+    agents = {
+        "dueling dqn": PearlAgent(policy_learner=DeepQLearning(
+            q_network=DuelingQValueNetwork(), **kw)),
+        "qr-dqn risk-neutral": PearlAgent(policy_learner=QuantileRegressionDeepQLearning(**kw)),
+        "qr-dqn mean-variance": PearlAgent(
+            policy_learner=QuantileRegressionDeepQLearning(**kw),
+            safety_module=QuantileNetworkMeanVarianceSafetyModule()),
+        "deep sarsa": PearlAgent(policy_learner=DeepSARSA(**kw),
+                                 replay_buffer=SARSAReplayBuffer(capacity=spl * n, num_envs=n)),
+        "dqn warmup(boltzmann)": PearlAgent(policy_learner=DeepQLearning(
+            q_network=multihead, exploration=Warmup(base=BoltzmannExploration(), warmup_steps=
+                                                    spl * lpc * n), **kw)),
+    }
+    for strategy in TiebreakingStrategy:
+        agents[f"dqn {strategy.name.lower()}"] = PearlAgent(policy_learner=DeepQLearning(
+            q_network=multihead, tiebreaking=strategy, **kw))
+    env = CartPole()
+    out = {}
+    for name, agent in agents.items():
+        if not isinstance(agent.replay_buffer, SARSAReplayBuffer):
+            agent = dataclasses.replace(agent, replay_buffer=BasicReplayBuffer(
+                capacity=spl * lpc * n))
+        init_fn, run_fn = make_compiled_runner(agent, env, num_envs=n, steps_per_learn=spl,
+                                               learns_per_call=lpc)
+        astate, env_states = init_fn(0)
+        gen = make_generator(0, "cuda")
+        rates = []
+        for _ in range(2):  # a warm-up and a timed call
+            t0 = time.perf_counter()
+            astate, env_states, stats = run_fn(astate, env_states, gen)
+            torch.cuda.synchronize()
+            rates.append(spl * lpc * n / (time.perf_counter() - t0))
+        storage = astate.replay.storage
+        for field in ("action_index", "next_action_index"):
+            index = getattr(storage, field)
+            assert index is None or ((index == 0) | (index == 1)).all(), (name, field)
+        assert stats["reward_sum"].item() == spl * lpc * n
+        astate = check_learn_metrics(agent, env, astate, gen, name)
+        out[name] = rates
+        print(f"{name} runner ({n} CartPole envs): env-steps/s warm-up {rates[0]:.1f}, timed "
+              f"{rates[1]:.1f} on {card}", flush=True)
+    return out
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -1596,6 +1938,25 @@ def main() -> int:
     run_discrete_actor_critic(card)
     phase("discrete actor-critic", t0)
 
+    t0 = time.perf_counter()
+    driver = run_driver(card)
+    phase("driver", t0)
+
+    t0 = time.perf_counter()
+    curves = run_curves(card)
+    phase("curves", t0)
+
+    t0 = time.perf_counter()
+    deferred = run_deferred_runner(card)
+    phase("deferred runner", t0)
+
+    t0 = time.perf_counter()
+    reset_fused_counts()
+    run_dqn_family(card)
+    family = fused_counts()
+    assert family["by_body"]["tiled"] == 0 < family["by_body"]["rows"], family
+    phase("dqn family", t0)
+
     act = timing[ACT_SHAPE[0]]
     kernels = [{
         "name": "fused_mlp",
@@ -1611,6 +1972,14 @@ def main() -> int:
         "library_ms": None,
         "body": act["body"],
         "launches_by_body": fused_by_body,
+        # Each later path's B1 launches, counted from 0 over its own run.
+        "launches_by_path": {
+            "driver (summary, 5 dispatches)": driver["counts"],
+            "curves, sampled (5 dispatches)": curves["sampled"]["counts"],
+            "curves, lossless (20 dispatches)": curves["lossless"]["counts"],
+            "deferred runner (one call)": deferred["counts"],
+            "dqn family (1024 envs)": family,
+        },
         "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],
         "learn_shape": timing[LEARN_SHAPE[0]],
     }]

@@ -32,7 +32,11 @@ from pearl_tpu_torch.ops.layout_fence import copy_fence
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.replay_buffer import BasicReplayBuffer
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
-from pearl_tpu_torch.safety_modules import IdentitySafetyModule, SafetyModule
+from pearl_tpu_torch.safety_modules import (
+    IdentitySafetyModule,
+    RiskSensitiveSafetyModule,
+    SafetyModule,
+)
 from pearl_tpu_torch.utils.device import DeviceLike, resolve_device
 from pearl_tpu_torch.utils.pytree import tree_select
 
@@ -56,10 +60,24 @@ class PearlAgent:
     safety_module: SafetyModule = dataclasses.field(default_factory=IdentitySafetyModule)
 
     def __post_init__(self):
-        if self.policy_learner.is_distributional:
-            raise NotImplementedError(
-                "distributional learners are not ported yet (ROADMAP Queue A, item 14)"
-            )
+        """Safety-module injection, as in the reference: a distributional
+        learner acts under a risk metric, so a risk-sensitive module given to
+        the agent replaces the learner's `safety`; the untouched default
+        resolves to the learner's own module, so both views agree; any other
+        module is a TypeError."""
+        learner = self.policy_learner
+        if learner.is_distributional and hasattr(learner, "safety"):
+            if isinstance(self.safety_module, RiskSensitiveSafetyModule):
+                object.__setattr__(
+                    self, "policy_learner", dataclasses.replace(learner, safety=self.safety_module)
+                )
+            elif type(self.safety_module) is IdentitySafetyModule:
+                object.__setattr__(self, "safety_module", learner.safety)
+            else:
+                raise TypeError(
+                    "A distributional policy learner requires a risk-sensitive safety "
+                    f"module; got {type(self.safety_module).__name__}."
+                )
         self._frame_path  # a frame-ring summarizer's pairing is checked here
 
     @property
@@ -180,6 +198,7 @@ class PearlAgent:
             terminated=zeros(1, dtype=torch.bool),
             truncated=zeros(1, dtype=torch.bool),
             action_index=zeros(1, dtype=torch.int32),
+            **self._extra_example_fields(space, device),
         )
         return AgentState(
             learner=learner_state,
@@ -190,6 +209,11 @@ class PearlAgent:
                 params=self.cache_params(learner_state),
             ),
         )
+
+    def _extra_example_fields(self, space, device) -> dict:
+        """Storage columns the replay buffer adds (SARSA's next action)."""
+        extra = getattr(self.replay_buffer, "extra_example_fields", None)
+        return extra(space, device) if extra is not None else {}
 
     # ------------------------------------------------------------------- act
     def subjective_state(self, astate: AgentState) -> torch.Tensor:

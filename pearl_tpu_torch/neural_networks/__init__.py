@@ -8,7 +8,9 @@ from pearl_tpu_torch.neural_networks.actor_networks import (
 from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, select_index_last
 from pearl_tpu_torch.neural_networks.q_value_networks import (
     CNNQValueNetwork,
+    DuelingQValueNetwork,
     MultiHeadQValueNetwork,
+    QuantileQValueNetwork,
     VanillaQValueNetwork,
 )
 from pearl_tpu_torch.neural_networks.twin_critic import CNNTwinCritic, TwinCritic
@@ -22,9 +24,11 @@ __all__ = [
     "CNNQValueNetwork",
     "CNNTwinCritic",
     "CNNValueNetwork",
+    "DuelingQValueNetwork",
     "DynamicActionActorNetwork",
     "GaussianActorNetwork",
     "MultiHeadQValueNetwork",
+    "QuantileQValueNetwork",
     "TwinCritic",
     "VanillaActorNetwork",
     "VanillaContinuousActorNetwork",

@@ -1,6 +1,7 @@
 """Q-value networks (port of `pearl_tpu/neural_networks/q_value_networks.py`:
-`VanillaQValueNetwork`, `MultiHeadQValueNetwork` and `CNNQValueNetwork`
-with its two opt-in act branches, the conv1 cache and the ring conv).
+`VanillaQValueNetwork`, `MultiHeadQValueNetwork`, `DuelingQValueNetwork`,
+`QuantileQValueNetwork` and `CNNQValueNetwork` with its two opt-in act
+branches, the conv1 cache and the ring conv).
 
 Each network is a frozen-dataclass adapter over an `nn.Module`, with the
 reference's protocol:
@@ -9,7 +10,8 @@ reference's protocol:
     q_all(params, state (B, s), actions (B, A, a), mask) -> (B, A)
 
 `generator` is a CPU `torch.Generator` for the weight init; move the module
-to its device afterwards.
+to its device afterwards. The quantile network adds
+`quantiles_all(params, state, actions, mask) -> (B, A, N)`.
 """
 
 from __future__ import annotations
@@ -29,14 +31,23 @@ from pearl_tpu_torch.ops.ring_conv import ring_conv1, ring_conv_applicable
 
 
 class _PairQNet(nn.Module):
-    """MLP over concat(state, action) -> (N, 1) (flax `_PairQNet`)."""
+    """MLP over concat(state, action) -> (N, output_dim) (flax `_PairQNet`)."""
 
-    def __init__(self, state_dim, action_dim, hidden_dims, generator=None):
+    def __init__(self, state_dim, action_dim, hidden_dims, generator=None, output_dim=1):
         super().__init__()
-        self.MLP_0 = MLP(state_dim + action_dim, hidden_dims, 1, generator=generator)
+        self.MLP_0 = MLP(state_dim + action_dim, hidden_dims, output_dim, generator=generator)
 
     def forward(self, state, action):
         return self.MLP_0(torch.cat([state, action], dim=-1))
+
+
+def _over_actions(params, state, actions):
+    """`params(state, action)` for every candidate: (B, s) and (B, A, a) ->
+    (B, A, out), as one batch of B * A rows."""
+    B, A = actions.shape[0], actions.shape[1]
+    state_rep = state[:, None, :].expand(B, A, state.shape[-1])
+    out = params(state_rep.reshape(B * A, -1), actions.reshape(B * A, -1))
+    return out.reshape(B, A, -1)
 
 
 class _MultiHeadNet(nn.Module):
@@ -61,10 +72,7 @@ class VanillaQValueNetwork:
         return _PairQNet(state_dim, action_dim, tuple(self.hidden_dims), generator)
 
     def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
-        B, A = actions.shape[0], actions.shape[1]
-        state_rep = state[:, None, :].expand(B, A, state.shape[-1])
-        q = params(state_rep.reshape(B * A, -1), actions.reshape(B * A, -1))
-        return q.reshape(B, A)
+        return _over_actions(params, state, actions)[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +93,83 @@ class MultiHeadQValueNetwork:
 
     def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
         return fused_mlp_from_module(params.MLP_0, state)
+
+
+class _DuelingNet(nn.Module):
+    """Dueling architecture (flax `_DuelingNet`): a shared state trunk, a
+    value head V(s) and an advantage head A(s, a) over concat(features,
+    action) for every candidate; Q = V + A - mean of A over the available
+    actions."""
+
+    def __init__(self, state_dim, action_dim, hidden_dims, generator=None):
+        super().__init__()
+        width = hidden_dims[-1]
+        self.state_arch = MLP(
+            state_dim, hidden_dims[:-1], width, generator=generator, last_activation="relu"
+        )
+        self.value_arch = MLP(width, (width,), 1, generator=generator)
+        self.advantage_arch = MLP(width + action_dim, (width,), 1, generator=generator)
+
+    def forward(self, state, actions, mask=None):
+        B, A = actions.shape[0], actions.shape[1]
+        feat = self.state_arch(state)
+        value = self.value_arch(feat)[..., 0]
+        adv_in = torch.cat([feat[:, None, :].expand(B, A, feat.shape[-1]), actions], dim=-1)
+        adv = self.advantage_arch(adv_in.reshape(B * A, -1)).reshape(B, A)
+        if mask is None:
+            adv_mean = adv.mean(dim=-1, keepdim=True)
+        else:
+            m = mask.to(adv.dtype)
+            adv_mean = (adv * m).sum(dim=-1, keepdim=True) / torch.clamp(
+                m.sum(dim=-1, keepdim=True), min=1.0
+            )
+        return value[:, None] + adv - adv_mean
+
+
+@dataclasses.dataclass(frozen=True)
+class DuelingQValueNetwork:
+    """Dueling Q: a plain PyTorch product, as the reference computes it
+    outside any TPU kernel."""
+
+    hidden_dims: Sequence[int] = (64, 64)
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
+        del num_actions
+        return _DuelingNet(state_dim, action_dim, tuple(self.hidden_dims), generator)
+
+    def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        return params(state, actions, mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantileQValueNetwork:
+    """Quantile-distributional Q: a concat-MLP with `num_quantiles` outputs
+    over every candidate. `taus` are the N + 1 quantile edges, `midpoints`
+    the N midpoints the QR loss weights with."""
+
+    hidden_dims: Sequence[int] = (64, 64)
+    num_quantiles: int = 10
+
+    def taus(self, device=None) -> torch.Tensor:
+        return torch.linspace(0.0, 1.0, self.num_quantiles + 1, device=device)
+
+    def midpoints(self, device=None) -> torch.Tensor:
+        t = self.taus(device)
+        return (t[:-1] + t[1:]) / 2.0
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
+        del num_actions
+        return _PairQNet(
+            state_dim, action_dim, tuple(self.hidden_dims), generator, self.num_quantiles
+        )
+
+    def quantiles_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        """(B, A, N) quantile values of every candidate action."""
+        return _over_actions(params, state, actions)
+
+    def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        """The risk-neutral Q: the mean over quantiles."""
+        return self.quantiles_all(params, state, actions, mask).mean(dim=-1)
 
 
 class _CNNQNet(nn.Module):

@@ -30,7 +30,11 @@ from pearl_tpu_torch.history_summarization_modules import (
     HistorySummarizationModule,
     IdentityHistorySummarization,
 )
-from pearl_tpu_torch.policy_learners.exploration_modules.common import masked_argmax
+from pearl_tpu_torch.policy_learners.exploration_modules.common import (
+    TiebreakingStrategy,
+    masked_argmax,
+    model_action_index,
+)
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
 
 
@@ -51,6 +55,9 @@ class PolicyLearner(abc.ABC):
     history_summarizer: HistorySummarizationModule = IdentityHistorySummarization()
     # Bound by the agent via `dataclasses.replace` (`PearlAgent.for_env`).
     action_space: Any = None
+    # How the greedy argmax of `act` breaks ties (`TiebreakingStrategy`);
+    # None is NO_TIEBREAKING, which draws nothing.
+    tiebreaking: Any = None
 
     def bind(self, action_space) -> "PolicyLearner":
         return dataclasses.replace(self, action_space=action_space)
@@ -89,9 +96,19 @@ class PolicyLearner(abc.ABC):
         elements = self.action_space.elements.to(device)
         return elements, rep.apply(elements)
 
-    def greedy_index(self, scores, mask) -> torch.Tensor:
-        """Deterministic masked argmax (first index wins a tie)."""
-        return masked_argmax(scores, mask)
+    @property
+    def breaks_ties(self) -> bool:
+        return self.tiebreaking not in (None, TiebreakingStrategy.NO_TIEBREAKING)
+
+    def greedy_index(self, scores, mask, generator: Optional[torch.Generator] = None):
+        """The greedy action index under `tiebreaking`. The default is a
+        masked argmax (the first index wins a tie) and draws nothing; the
+        other strategies draw from `generator`, which the caller keeps apart
+        from its exploration stream (the reference draws them from a
+        `fold_in` of the act key)."""
+        if not self.breaks_ties:
+            return masked_argmax(scores, mask)
+        return model_action_index(scores, mask, self.tiebreaking, generator)
 
     @abc.abstractmethod
     def init(self, generator, observation_dim: int, action_space, num_envs: int, device):

@@ -7,6 +7,7 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.ddpg import (
 )
 from pearl_tpu_torch.policy_learners.sequential_decision_making.deep_td import (
     DeepQLearning,
+    DeepSARSA,
     DeepTDLearning,
     DeepTDState,
     DoubleDQN,
@@ -14,6 +15,9 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.deep_td import (
 from pearl_tpu_torch.policy_learners.sequential_decision_making.ppo import (
     ProximalPolicyOptimization,
     gae_lambda_returns,
+)
+from pearl_tpu_torch.policy_learners.sequential_decision_making.qr_dqn import (
+    QuantileRegressionDeepQLearning,
 )
 from pearl_tpu_torch.policy_learners.sequential_decision_making.reinforce import (
     REINFORCE,
@@ -36,10 +40,12 @@ __all__ = [
     "ContinuousSoftActorCritic",
     "DeepDeterministicPolicyGradient",
     "DeepQLearning",
+    "DeepSARSA",
     "DeepTDLearning",
     "DeepTDState",
     "DoubleDQN",
     "ProximalPolicyOptimization",
+    "QuantileRegressionDeepQLearning",
     "REINFORCE",
     "SoftActorCritic",
     "TD3",

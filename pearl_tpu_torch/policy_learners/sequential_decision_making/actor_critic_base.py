@@ -322,7 +322,7 @@ class ActorCriticBase(PolicyLearner):
         probs = self.actor.get_policy_distribution(
             actor, subjective_state, candidates, mask
         ).to(torch.float32)
-        exploit_index = self.greedy_index(probs, mask)
+        exploit_index = self.greedy_index(probs, mask, state.generator)
         explore_state = state.explore_state
         if exploit:
             index = exploit_index

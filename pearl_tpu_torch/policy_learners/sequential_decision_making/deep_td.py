@@ -1,5 +1,5 @@
-"""Deep TD-learning family: DQN and Double DQN, with the CQL flag (port of
-`pearl_tpu/policy_learners/sequential_decision_making/deep_td.py`).
+"""Deep TD-learning family: DQN, Double DQN and deep SARSA, with the CQL
+flag (port of `pearl_tpu/policy_learners/sequential_decision_making/deep_td.py`).
 
 Semantics kept from the reference:
 - Bellman target r + gamma * (1 - terminated) * next_values; weighted MSE
@@ -22,7 +22,11 @@ updates), the learn-step counter is a host integer, and the `act_dtype` cast
 of the params is a copy kept in the state and recast by `_act_module` only
 when the params were written since the last cast (the reference casts every
 parameter on every act step; the copy holds the same values for fewer
-launches).
+launches). A `tiebreaking` strategy other than NO draws its ties from a
+second device generator in the state, `tie_generator`, seeded at `init` after
+the weights from the init generator: configuring it leaves the weights and
+the exploration stream as they were (the reference draws ties from a
+`fold_in` of the act key to the same end).
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ class DeepTDState:
     # unset (acting then reads `params`). Read it through the learner's
     # `_act_module`, which recasts it when `params` changed.
     act_params: Optional[nn.Module] = None
+    # Draws of the greedy index's tie-breaking; None under NO_TIEBREAKING.
+    tie_generator: Optional[torch.Generator] = None
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True, eq=False)
@@ -102,6 +108,10 @@ class DeepTDLearning(PolicyLearner):
             act_params = copy.deepcopy(params).requires_grad_(False).to(self._act_dtype())
         summ_params = self.history_summarizer.init_params(generator, observation_dim, rep_dim)
         elements, reps = self.action_tensors(device)
+        tie_generator = None
+        if self.breaks_ties:
+            seed = int(torch.randint(0, 2**62, (), generator=generator))
+            tie_generator = torch.Generator(device=device).manual_seed(seed)
         return DeepTDState(
             params=params,
             target_params=target,
@@ -112,6 +122,7 @@ class DeepTDLearning(PolicyLearner):
             action_elements=elements,
             action_reps=reps,
             act_params=act_params,
+            tie_generator=tie_generator,
         )
 
     def _act_dtype(self) -> torch.dtype:
@@ -132,28 +143,32 @@ class DeepTDLearning(PolicyLearner):
         return reps[None].expand((batch_size,) + tuple(reps.shape))
 
     # --- acting ------------------------------------------------------------
-    def _scores(self, state, subjective_state, mask) -> torch.Tensor:
-        """Action scores for greedy selection and exploration, float32. Under
-        `act_dtype` the forward runs on the cast params and cast inputs
-        (a `FrameRingView` casts its ring)."""
+    def _act_inputs(self, state, subjective_state):
+        """(params, subjective state, candidates) of the acting forward. Under
+        `act_dtype`: the cast params and inputs cast to match (a
+        `FrameRingView` casts its ring). Every scoring path goes through here,
+        so `act_dtype` is never silently ignored."""
         candidates = self._candidates(state, subjective_state.shape[0])
-        params = state.params
-        if state.act_params is not None:
-            dtype = self._act_dtype()
-            params = self._act_module(state)
-            subjective_state = (
-                subjective_state.to(dtype)
-                if isinstance(subjective_state, torch.Tensor)
-                else subjective_state.astype(dtype)
-            )
-            candidates = candidates.to(dtype)
+        if state.act_params is None:
+            return state.params, subjective_state, candidates
+        dtype = self._act_dtype()
+        subjective_state = (
+            subjective_state.to(dtype)
+            if isinstance(subjective_state, torch.Tensor)
+            else subjective_state.astype(dtype)
+        )
+        return self._act_module(state), subjective_state, candidates.to(dtype)
+
+    def _scores(self, state, subjective_state, mask) -> torch.Tensor:
+        """Action scores for greedy selection and exploration, float32."""
+        params, subjective_state, candidates = self._act_inputs(state, subjective_state)
         q = self.q_network.q_all(params, subjective_state, candidates, mask)
         return q.to(torch.float32)
 
     @torch.no_grad()
     def act(self, state, subjective_state, mask, generator, exploit: bool = False):
         scores = self._scores(state, subjective_state, mask)
-        exploit_index = self.greedy_index(scores, mask)
+        exploit_index = self.greedy_index(scores, mask, state.tie_generator)
         if exploit:
             index, explore_state = exploit_index, state.explore_state
         else:
@@ -240,3 +255,22 @@ class DoubleDQN(DeepTDLearning):
             target_params, next_subj, candidates, batch.next_available_mask
         )
         return select_index_last(q_target, best)
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True, eq=False)
+class DeepSARSA(DeepTDLearning):
+    """On-policy deep SARSA: the next value is the target net's Q of the
+    action actually committed next, so it needs a `SARSAReplayBuffer`, which
+    stores `next_action_index`."""
+
+    @property
+    def on_policy(self) -> bool:
+        return True
+
+    def _next_state_values(self, params, target_params, summ_params, batch, state):
+        next_subj = self.history_summarizer.forward(summ_params, batch.next_state)
+        candidates = self._candidates(state, next_subj.shape[0])
+        q_next = self.q_network.q_all(
+            target_params, next_subj, candidates, batch.next_available_mask
+        )
+        return select_index_last(q_next, batch.next_action_index)

@@ -33,6 +33,16 @@ class BasicReplayBuffer:
 
     capacity: int = 10_000
 
+    @property
+    def supports_deferred_push(self) -> bool:
+        """Whether a driver may collect a chunk's k steps x B envs of
+        transitions (step-major) and write them in one push instead of k:
+        true when a push is a ring write and a cursor bump, which holds the
+        same rows either way when capacity % (k * B) == 0. False for buffers
+        whose push pairs rows with a per-env cache (SARSA's next action) or
+        with the frame path."""
+        return True
+
     def init(self, example: TransitionBatch) -> ReplayBufferState:
         """`example` is a TransitionBatch with any leading axis on the target
         device (only its shapes, dtypes and device are used)."""

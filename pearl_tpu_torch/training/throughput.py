@@ -5,10 +5,17 @@ The reference fuses `learns_per_call` x (steps_per_learn env steps + one
 learn) into one jitted program. Here the same loop runs eagerly on the
 device; it returns only device-side scalar sums, so a call makes no host
 sync.
+
+`deferred_push=True` collects each chunk's transitions and writes them in one
+step-major push of steps_per_learn * num_envs rows: one ring write per chunk
+instead of one per step, the same rows whenever capacity %
+(steps_per_learn * num_envs) == 0. It needs
+`replay_buffer.supports_deferred_push`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -16,6 +23,7 @@ import torch
 from pearl_tpu_torch.agent.pearl_agent import PearlAgent
 from pearl_tpu_torch.envs.vector import VectorEnv
 from pearl_tpu_torch.utils.device import DeviceLike, make_generator, resolve_device
+from pearl_tpu_torch.utils.pytree import tree_map
 
 
 def make_compiled_runner(
@@ -38,9 +46,11 @@ def make_compiled_runner(
         is a `torch.Generator` on the device.
     """
     device = resolve_device(device)
-    if deferred_push:
-        raise NotImplementedError(
-            "deferred (chunk-granular) pushes are not ported yet (ROADMAP Queue A, item 9)"
+    deferred_push = bool(deferred_push)
+    if deferred_push and not agent.replay_buffer.supports_deferred_push:
+        raise ValueError(
+            f"{type(agent.replay_buffer).__name__} does not support deferred "
+            "(chunk-granular) pushes"
         )
     agent = agent.for_env(env)
     venv = VectorEnv(env, num_envs, device)
@@ -54,12 +64,24 @@ def make_compiled_runner(
         reward_sum = torch.zeros((), device=device)
         episodes = torch.zeros((), dtype=torch.int64, device=device)
         for _ in range(learns_per_call):
+            transitions = []
             for _ in range(steps_per_learn):
                 agent_state, choice = agent.act(agent_state, generator)
                 env_states, result, next_obs = venv.step(env_states, choice.action, generator)
-                agent_state = agent.observe(agent_state, result, next_obs, generator)
+                if deferred_push:
+                    agent_state, transition = agent.observe_deferred(
+                        agent_state, result, next_obs, generator
+                    )
+                    transitions.append(transition)
+                else:
+                    agent_state = agent.observe(agent_state, result, next_obs, generator)
                 reward_sum += result.reward.sum()
                 episodes += result.done.sum()
+            if deferred_push:
+                flat = tree_map(lambda *xs: torch.cat(xs), *transitions)
+                agent_state = dataclasses.replace(
+                    agent_state, replay=agent.replay_buffer.push(agent_state.replay, flat)
+                )
             if learn:
                 agent_state, _ = agent.learn(agent_state, generator)
         return agent_state, env_states, {"reward_sum": reward_sum, "episodes": episodes}

@@ -6,6 +6,10 @@ names, e.g. for `MultiHeadQValueNetwork` and for `VanillaQValueNetwork`
 
     {"MLP_0": {"dense_0": {"kernel", "bias"}, ..., "dense_out": {...}}}
 
+`QuantileQValueNetwork` has the same `_PairQNet` tree with N outputs, and
+`DuelingQValueNetwork` three MLPs, `{"state_arch", "value_arch",
+"advantage_arch"}` (`load_flax_dueling_q_params`).
+
 Flax `Dense.kernel` is (in, out); `nn.Linear.weight`, and therefore the
 `fused_mlp` kernel's W, is (out, in): each kernel is transposed on the way in.
 `CNNQValueNetwork`'s tree adds `{"conv": {"conv_0": {"kernel", "bias"}, ...}}`
@@ -71,10 +75,21 @@ def _check_keys(params: Mapping, keys) -> None:
 
 def load_flax_q_params(net: nn.Module, params: Mapping) -> nn.Module:
     """Load a Q-network's flax params (`{"MLP_0": {...}}`) into the port's
-    `_MultiHeadNet` or `_PairQNet`; returns `net`."""
+    `_MultiHeadNet` or `_PairQNet` (the Vanilla and the Quantile network);
+    returns `net`."""
     if set(params) != {"MLP_0"}:
         raise ValueError(f"expected a {{'MLP_0': ...}} param tree, got keys {sorted(params)}")
     load_flax_mlp(net.MLP_0, params["MLP_0"])
+    return net
+
+
+def load_flax_dueling_q_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `DuelingQValueNetwork`'s flax params into the port's
+    `_DuelingNet`; returns `net`."""
+    names = ("state_arch", "value_arch", "advantage_arch")
+    _check_keys(params, names)
+    for name in names:
+        load_flax_mlp(getattr(net, name), params[name])
     return net
 
 

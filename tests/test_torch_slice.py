@@ -289,12 +289,9 @@ def test_online_learning_stops_early_and_resumes_from_a_state():
     assert evaluated.agent_state.history_carry.shape == (4, 4)
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [{"stats": "summary"}, {"stats": "curves"}, {"mesh": object()}, {"deferred_push": True}],
-)
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_online_learning_modes_not_ported_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 20"):
         online_learning(_online_agent(), CartPole(), max_steps=16, device="cpu", **kwargs)
 
 
