@@ -69,8 +69,25 @@ Phases, each printing its seconds:
  16. dqn family: Dueling DQN, QR-DQN risk-neutral and mean-variance, deep
      SARSA, and the multi-head DQN with Warmup(Boltzmann) and with each
      tie-breaking strategy, at 1024 CartPole envs through the runner.
+ 17. packed runner: the headline runner with `PackedReplayBuffer` (bench.py's
+     BENCH_BUFFER=packed) beside the per-field runner, timed calls in the
+     order basic, packed, packed, basic; the kernels of one env step and of
+     one learn and a profiled call of each; packed and per-field storage
+     equal for the same indices at the runner's capacity;
+ 18. prioritized runner: the same with `PrioritizedReplayBuffer`: one call
+     under the sync check, the write-back of one learn held to |td| +
+     epsilon, the profiles, and the draws' chi-square over a fixed priority
+     vector;
+ 19. bootstrapped dqn: the registry's two rows (K = 10 and K = 1) at 1024
+     envs: the priors bit-identical after 64 learns, the masks' mean, z
+     redrawn only where an episode ended;
+ 20. her learning: DQN with HER on the sparse reach task
+     (test_convergence.py:193-219), above 0.95 success over the last 200
+     episodes;
+ 21. two-tower dqn and tabular q: one short runner call each.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
- 13-15 reach B1 as the runner does, 16 through its multi-head DQNs.
+ 13-15 and 17-18 reach B1 as the runner does, 16 through its multi-head
+ DQNs; 19-21 run plain PyTorch products (the reference's are flax stacks).
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -1699,6 +1716,55 @@ def run_curves(card):
     return out
 
 
+def headline_runner(buffer=None, deferred_push=False):
+    """`make_compiled_runner` of the headline agent (with `buffer` in place
+    of its own, if given) at the headline width (bench.py:176-211),
+    initialised and warmed up by one call. Returns [run_fn, astate,
+    env_states, gen, agent]."""
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    agent = headline_agent()
+    if buffer is not None:
+        agent = dataclasses.replace(agent, replay_buffer=buffer)
+    init_fn, run_fn = make_compiled_runner(
+        agent, CartPole(), num_envs=DRV_B, steps_per_learn=DRV_SPL, learns_per_call=DRV_CPD,
+        deferred_push=deferred_push,
+    )
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, "cuda")
+    astate, env_states, _ = run_fn(astate, env_states, gen)  # warm-up
+    torch.cuda.synchronize()
+    return [run_fn, astate, env_states, gen, agent]
+
+
+def interleaved_calls(runners, order, card, label):
+    """One timed call of each runner in `order` (names into `runners`), B1's
+    launches by body counted from 0 in each and held at one call's 512 act
+    (tiled) and 128 learn (rows) launches. Returns (rates by name, counts by
+    name: each runner's counts from its own last call)."""
+    rates = {name: [] for name in runners}
+    counts = {}
+    for name in order:
+        run_fn, astate, env_states, gen, _ = runners[name]
+        reset_fused_counts()
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates[name].append(DRV_B * DRV_SPL * DRV_CPD / (time.perf_counter() - t0))
+        counts[name] = fused_counts()
+        assert counts[name]["by_body"] == driver_body_counts(1), (name, counts[name])
+        assert stats["reward_sum"].item() == DRV_B * DRV_SPL * DRV_CPD
+        runners[name][1:3] = [astate, env_states]
+    print(f"{label} ({DRV_B} envs, {DRV_CPD} learns per call), env-steps/s in the order run: "
+          + ", ".join(f"{n} {rates[n][order[:i + 1].count(n) - 1]:.1f}"
+                      for i, n in enumerate(order))
+          + "; B1 by body per call " + ", ".join(f"{n} {c['by_body']}" for n, c in counts.items())
+          + f" on {card}", flush=True)
+    return rates, counts
+
+
 def run_deferred_runner(card):
     """`make_compiled_runner(deferred_push=True)` at the headline width (64
     learns per call) beside the per-step runner in the same phase: a warm-up
@@ -1706,50 +1772,19 @@ def run_deferred_runner(card):
     per-step; the two keep the same replay cursor and size and the same B1
     launches by body. Then one deferred dispatch of the driver under the
     sync check."""
-    from pearl_tpu_torch.envs import CartPole
-    from pearl_tpu_torch.training import make_compiled_runner
-    from pearl_tpu_torch.utils import make_generator
-
-    runners = {}
-    for deferred in (False, True):
-        init_fn, run_fn = make_compiled_runner(
-            headline_agent(), CartPole(), num_envs=DRV_B, steps_per_learn=DRV_SPL,
-            learns_per_call=DRV_CPD, deferred_push=deferred,
-        )
-        astate, env_states = init_fn(0)
-        gen = make_generator(0, "cuda")
-        astate, env_states, _ = run_fn(astate, env_states, gen)  # warm-up
-        runners[deferred] = [run_fn, astate, env_states, gen]
-    torch.cuda.synchronize()
-    rates = {False: [], True: []}
-    counts = {}
-    for deferred in (False, True, True, False):
-        run_fn, astate, env_states, gen = runners[deferred]
-        reset_fused_counts()
-        t0 = time.perf_counter()
-        astate, env_states, stats = run_fn(astate, env_states, gen)
-        torch.cuda.synchronize()
-        rates[deferred].append(DRV_B * DRV_SPL * DRV_CPD / (time.perf_counter() - t0))
-        counts[deferred] = fused_counts()
-        assert counts[deferred]["by_body"] == driver_body_counts(1), counts
-        assert stats["reward_sum"].item() == DRV_B * DRV_SPL * DRV_CPD
-        runners[deferred][1:3] = [astate, env_states]
-    a, b = runners[False][1].replay, runners[True][1].replay
+    runners = {"per-step": headline_runner(), "deferred": headline_runner(deferred_push=True)}
+    rates, counts = interleaved_calls(
+        runners, ("per-step", "deferred", "deferred", "per-step"), card, "deferred runner")
+    a, b = runners["per-step"][1].replay, runners["deferred"][1].replay
     assert (a.cursor, a.size) == (b.cursor, b.size), ((a.cursor, a.size), (b.cursor, b.size))
     index = b.storage.action_index
     assert ((index == 0) | (index == 1)).all()
-    print(f"deferred runner ({DRV_B} envs, {DRV_CPD} learns per call), env-steps/s in the order "
-          f"run: "
-          f"per-step {rates[False][0]:.1f}, deferred {rates[True][0]:.1f}, deferred "
-          f"{rates[True][1]:.1f}, per-step {rates[False][1]:.1f}; B1 by body per call "
-          f"{counts[True]['by_body']} on {card}", flush=True)
-    agent = headline_agent()
-    _, astate, env_states, _ = runners[True]
+    _, astate, env_states, _, agent = runners["deferred"]
     dispatch = driver_dispatcher(agent, astate, env_states, "full", deferred_push=True)
     stats_dev = no_sync(dispatch)
     assert stats_dev.shape == (4, DRV_SPL * DRV_CPD, DRV_B)
     print(f"deferred driver: one dispatch made no host sync on {card}", flush=True)
-    return {"rates": rates, "counts": counts[True]}
+    return {"rates": rates, "counts": counts["deferred"]}
 
 
 def run_dqn_family(card):
@@ -1817,6 +1852,327 @@ def run_dqn_family(card):
         out[name] = rates
         print(f"{name} runner ({n} CartPole envs): env-steps/s warm-up {rates[0]:.1f}, timed "
               f"{rates[1]:.1f} on {card}", flush=True)
+    return out
+
+
+def runner_profiles(runners, names, card):
+    """For each runner: the device kernels of one env step and of one learn
+    (`kernels_per_step_and_learn`), then one more call profiled against the
+    mean wall time of its timed calls (the idle share)."""
+    from pearl_tpu_torch.envs import CartPole
+
+    out = {}
+    for name, wall_s in names.items():
+        run_fn, astate, env_states, gen, agent = runners[name]
+        per_step, per_learn, _, _, astate, env_states = kernels_per_step_and_learn(
+            agent, CartPole(), astate, env_states, gen, DRV_B)
+        prof = profile_fn(lambda: run_fn(astate, env_states, gen), wall_s,
+                          unit=f"{name} runner call")
+        runners[name][1:3] = [astate, env_states]
+        print(f"{name} runner: {per_step:.1f} device kernels per env step, {per_learn:.1f} per "
+              f"learn on {card}", flush=True)
+        out[name] = {"kernels_per_step": per_step, "kernels_per_learn": per_learn,
+                     "profile": prof}
+    return out
+
+
+def check_packed_equals_basic(card):
+    """Packed and per-field storage give equal batches for the same indices,
+    on the card at the runner's capacity: 16 pushes of 131072 random
+    transitions (negative zeros, large and tiny floats, both bools, int32
+    action indices), then 4096 drawn rows compared field by field, bit for
+    bit."""
+    from pearl_tpu_torch.replay_buffers import (
+        BasicReplayBuffer, PackedReplayBuffer, TransitionBatch,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def batch(n):
+        f = lambda *shape: torch.randn(shape, device="cuda", generator=gen) * 1e3  # noqa: E731
+        state = f(n, 4)
+        state[::7, 0] = -0.0
+        state[::11, 1] = 1e-30
+        return TransitionBatch(
+            state=state, action=torch.randint(0, 2, (n, 1), device="cuda", generator=gen).float(),
+            reward=f(n), next_state=f(n, 4),
+            terminated=torch.rand(n, device="cuda", generator=gen) < 0.5,
+            truncated=torch.rand(n, device="cuda", generator=gen) < 0.1,
+            action_index=torch.randint(-2**24, 2**24, (n,), device="cuda", generator=gen,
+                                       dtype=torch.int32),
+        )
+
+    example = batch(1)
+    bufs = {"basic": BasicReplayBuffer(capacity=DRV_CAPACITY),
+            "packed": PackedReplayBuffer(capacity=DRV_CAPACITY)}
+    states = {k: b.init(example) for k, b in bufs.items()}
+    for _ in range(DRV_CAPACITY // DRV_B):
+        data = batch(DRV_B)
+        states = {k: bufs[k].push(states[k], data) for k in bufs}
+    idx = bufs["basic"].sample_indices(states["basic"], gen, 4096)
+    got = {k: bufs[k].sample(states[k], None, 4096, indices=idx) for k in bufs}
+    for f in dataclasses.fields(got["basic"]):
+        a, b = getattr(got["basic"], f.name), getattr(got["packed"], f.name)
+        assert (a is None) == (b is None), f.name
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+    print(f"packed and basic: equal batches for 4096 drawn rows of a {DRV_CAPACITY}-row ring "
+          f"on {card}", flush=True)
+
+
+def run_packed_runner(card):
+    """bench.py:192-199's runner line with BENCH_BUFFER=packed: the headline
+    agent storing into `PackedReplayBuffer(capacity=2_097_152)` beside the
+    per-field runner of the same phase, a warm-up call each and timed calls
+    in the order basic, packed, packed, basic; then the kernels of one env
+    step and of one learn and a profiled call of each; then packed and basic
+    batches compared for the same indices."""
+    from pearl_tpu_torch.replay_buffers import PackedReplayBuffer
+
+    runners = {"basic": headline_runner(),
+               "packed": headline_runner(PackedReplayBuffer(capacity=DRV_CAPACITY))}
+    rates, counts = interleaved_calls(runners, ("basic", "packed", "packed", "basic"), card,
+                                      "packed runner")
+    a, b = runners["basic"][1].replay, runners["packed"][1].replay
+    assert (a.cursor, a.size) == (b.cursor, b.size), ((a.cursor, a.size), (b.cursor, b.size))
+    walls = {n: DRV_B * DRV_SPL * DRV_CPD / statistics.mean(r) for n, r in rates.items()}
+    profiles = runner_profiles(runners, walls, card)
+    check_packed_equals_basic(card)
+    return {"rates": rates, "counts": counts["packed"], "profiles": profiles}
+
+
+def check_prioritized_draws(card):
+    """The sampler's histogram over a small, fixed priority vector (7 rows
+    written of 14; the others must never be drawn): Pearson's chi-square over
+    the 7 written rows, 6 degrees of freedom, below 22.46 (its 0.001
+    critical value) for 1048576 draws on the card."""
+    from pearl_tpu_torch.replay_buffers import PrioritizedReplayBuffer, TransitionBatch
+
+    buf = PrioritizedReplayBuffer(capacity=14)
+    z = torch.zeros((7, 1), device="cuda")
+    rows = TransitionBatch(state=z, action=z, reward=z[:, 0], next_state=z,
+                           terminated=z[:, 0] > 0, truncated=z[:, 0] > 0)
+    state = buf.push(buf.init(rows), rows)
+    p = torch.tensor([0.01, 0.5, 1.0, 2.0, 4.0, 8.0, 1e-6], device="cuda")
+    state.priorities[:7].copy_(p)
+    draws = 1 << 20
+    idx = buf.sample_indices(state, torch.Generator(device="cuda").manual_seed(0), draws)
+    counts = torch.bincount(idx, minlength=14).cpu().double()
+    w = torch.clamp(p.cpu().double(), min=buf.epsilon) ** buf.alpha
+    expected = draws * w / w.sum()
+    chi2 = float(((counts[:7] - expected) ** 2 / expected).sum())
+    assert counts[7:].sum() == 0 and chi2 < 22.46, (chi2, counts.tolist(), expected.tolist())
+    print(f"prioritized draws: chi-square {chi2:.3f} over 7 rows (bound 22.46, 6 degrees of "
+          f"freedom, p = 0.001), {draws} draws on {card}", flush=True)
+    return chi2
+
+
+def check_priority_write_back(runner):
+    """One more learn on drawn indices: the priorities of the drawn rows are
+    then |td| + epsilon, the td of the learn's own batch before its update
+    (a repeated row takes its last occurrence's)."""
+    from pearl_tpu_torch.replay_buffers.prioritized import last_occurrence_values
+
+    run_fn, astate, env_states, gen, agent = runner
+    buf, learner = agent.replay_buffer, agent.policy_learner
+    idx = buf.sample_indices(astate.replay, gen, learner.batch_size)
+    batch = buf.sample(astate.replay, None, learner.batch_size, indices=idx)
+    with torch.no_grad():
+        _, aux = learner.td_loss(astate.learner, batch)
+    want = last_occurrence_values(idx, aux["per_sample_td"] + buf.epsilon)
+    astate, _ = agent.learn(astate, gen, indices=idx[None])
+    got = astate.replay.priorities[idx]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    runner[1] = astate
+    return int(idx.unique().numel())
+
+
+def run_prioritized_runner(card):
+    """The headline runner with `PrioritizedReplayBuffer(capacity=2_097_152)`
+    beside the per-field runner of the same phase (basic, prioritized,
+    prioritized, basic), B1's launches per call; one call under the sync
+    check; the write-back of one learn; the kernels of one env step and of
+    one learn and a profiled call of each (the idle shares); the draws'
+    histogram."""
+    from pearl_tpu_torch.replay_buffers import PrioritizedReplayBuffer
+
+    runners = {"basic": headline_runner(),
+               "prioritized": headline_runner(PrioritizedReplayBuffer(capacity=DRV_CAPACITY))}
+    rates, counts = interleaved_calls(
+        runners, ("basic", "prioritized", "prioritized", "basic"), card, "prioritized runner")
+    run_fn, astate, env_states, gen, _ = runners["prioritized"]
+    astate, env_states, _ = no_sync(lambda: run_fn(astate, env_states, gen))
+    runners["prioritized"][1:3] = [astate, env_states]
+    p = astate.replay.priorities[:astate.replay.size]
+    assert torch.isfinite(p).all() and (p > 0).all() and (p != 1.0).any()
+    print(f"prioritized runner: one call made no host sync; priorities of the {p.numel()} "
+          f"written rows in [{p.min().item():.6f}, {p.max().item():.6f}] on {card}", flush=True)
+    rows = check_priority_write_back(runners["prioritized"])
+    print(f"prioritized runner: one more learn wrote |td| + epsilon to its {rows} distinct "
+          f"drawn rows on {card}", flush=True)
+    walls = {n: DRV_B * DRV_SPL * DRV_CPD / statistics.mean(r) for n, r in rates.items()}
+    profiles = runner_profiles(runners, walls, card)
+    chi2 = check_prioritized_draws(card)
+    return {"rates": rates, "counts": counts["prioritized"], "profiles": profiles, "chi2": chi2}
+
+
+# The two BootstrappedDQN rows of the reference's registry
+# (pearl_tpu/benchmarks/configs.py:132-139, 293-303): K = 10 and K = 1, batch
+# 128, two rounds, a learn every 4 steps; 1024 envs; the registry's 50000-row
+# replay rounded up to a multiple of 1024.
+BOOT_B, BOOT_SPL, BOOT_LPC, BOOT_CAPACITY = 1_024, 4, 32, 65_536
+
+
+def run_bootstrapped(card):
+    """Bootstrapped DQN at both registry rows through the runner: a warm-up
+    and a timed call of 32 learns each (64 learns), the priors bit-identical
+    afterwards while the trainable members moved, the stored masks' mean
+    within 5 standard deviations of p, the losses of one more learn finite;
+    then 16 env steps through the agent, in which z changes only where an
+    episode ended."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole, VectorEnv
+    from pearl_tpu_torch.neural_networks import EnsembleQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import BootstrappedDQN
+    from pearl_tpu_torch.replay_buffers import BootstrapReplayBuffer
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    env = CartPole()
+    out = {}
+    for K in (10, 1):
+        name = f"bootstrapped dqn K={K}"
+        agent = PearlAgent(
+            policy_learner=BootstrappedDQN(q_network=EnsembleQValueNetwork(ensemble_size=K),
+                                           training_rounds=2, batch_size=128),
+            replay_buffer=BootstrapReplayBuffer(capacity=BOOT_CAPACITY, ensemble_size=K),
+        )
+        init_fn, run_fn = make_compiled_runner(agent, env, num_envs=BOOT_B,
+                                               steps_per_learn=BOOT_SPL, learns_per_call=BOOT_LPC)
+        astate, env_states = init_fn(0)
+        gen = make_generator(0, "cuda")
+        prior = [p.clone() for p in astate.learner.prior_params.parameters()]
+        params = [p.clone() for p in astate.learner.params.parameters()]
+        rates = []
+        for _ in range(2):  # a warm-up and a timed call: 64 learns
+            t0 = time.perf_counter()
+            astate, env_states, stats = run_fn(astate, env_states, gen)
+            torch.cuda.synchronize()
+            rates.append(BOOT_B * BOOT_SPL * BOOT_LPC / (time.perf_counter() - t0))
+        assert stats["reward_sum"].item() == BOOT_B * BOOT_SPL * BOOT_LPC
+        assert all(torch.equal(a, b) for a, b in zip(prior, astate.learner.prior_params.parameters()))
+        assert all(not torch.equal(a, b) for a, b in zip(params, astate.learner.params.parameters()))
+        replay = astate.replay
+        mask = replay.storage.bootstrap_mask[:replay.size]
+        p = agent.replay_buffer.p
+        bound = 5 * math.sqrt(p * (1 - p) / mask.numel())
+        mean = mask.mean().item()
+        assert abs(mean - p) < bound and set(mask.unique().tolist()) == {0.0, 1.0}, (mean, bound)
+        astate = check_learn_metrics(agent, env, astate, gen, name)
+
+        bound_agent = agent.for_env(env)
+        venv = VectorEnv(env, BOOT_B, torch.device("cuda"))
+        moved_total = finished = 0
+        for _ in range(16):
+            z = astate.learner.explore_state.z.clone()
+            astate, choice = bound_agent.act(astate, gen)
+            env_states, result, next_obs = venv.step(env_states, choice.action, gen)
+            astate = bound_agent.observe(astate, result, next_obs, gen)
+            moved = astate.learner.explore_state.z != z
+            assert not (moved & ~result.done).any()
+            moved_total += int(moved.sum())
+            finished += int(result.done.sum())
+        z = astate.learner.explore_state.z
+        assert z.dtype == torch.int64 and ((z >= 0) & (z < K)).all()
+        print(f"{name} runner ({BOOT_B} CartPole envs, capacity {BOOT_CAPACITY}): env-steps/s "
+              f"warm-up {rates[0]:.1f}, timed {rates[1]:.1f}; priors bit-identical after "
+              f"{2 * BOOT_LPC} learns, members moved; mask mean {mean:.5f} (p {p}, bound "
+              f"{bound:.5f}); over 16 steps z changed for {moved_total} of {finished} finished "
+              f"episodes and nowhere else on {card}", flush=True)
+        out[name] = {"rates": rates, "mask_mean": mean}
+    return out
+
+
+def run_her_learning(card):
+    """tests/integration/test_convergence.py:193-219 on the card: DQN with
+    HER on the 8-direction sparse reach task, 16 envs, 150000 env steps,
+    seed 42; the success share of the last 200 episodes must be above 0.95
+    and above that of the first 200."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import DiscreteSparseRewardEnvironment
+    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import HindsightExperienceReplayBuffer
+    from pearl_tpu_torch.training import online_learning
+
+    env = DiscreteSparseRewardEnvironment(length=50.0, num_actions=8, step_size=4.0,
+                                          reward_distance=4.0, max_steps=40)
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(training_rounds=4, batch_size=128,
+                                     exploration=EGreedyExploration(epsilon=0.1)),
+        replay_buffer=HindsightExperienceReplayBuffer(capacity=100_000, num_envs=16,
+                                                      max_episode_len=40, goal_dim=2),
+    )
+    t0 = time.perf_counter()
+    res = online_learning(agent, env, num_envs=16, max_steps=150_000, learn_every_k_steps=2,
+                          learning_starts=1_000, seed=42)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    success = res.episode_returns > -40.0 + 0.5
+    last, first = float(success[-200:].mean()), float(success[:200].mean())
+    replay = res.agent_state.replay
+    print(f"her learning: success share {last:.3f} over the last 200 episodes ({first:.3f} "
+          f"over the first 200), {len(success)} episodes in {res.total_steps} env steps, "
+          f"{seconds:.1f} s; replay size {replay.size.item()} of {agent.replay_buffer.capacity} "
+          f"on {card}", flush=True)
+    assert last > 0.95 and first < last, (first, last)
+    return {"success_last_200": last, "seconds": seconds}
+
+
+def run_two_tower_and_tabular(card):
+    """One short runner call each: DQN with `TwoTowerQValueNetwork` at 1024
+    CartPole envs, and `TabularQLearning` at 16 envs (a state's index is the
+    argmax of its observation, 4 states here; a smoke of the card path, not a
+    learning task); the losses of one more learn finite."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.neural_networks import TwoTowerQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        DeepQLearning, TabularQLearning,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    env = CartPole()
+    cases = {
+        "two-tower dqn": (PearlAgent(
+            policy_learner=DeepQLearning(q_network=TwoTowerQValueNetwork(), training_rounds=1,
+                                         batch_size=1024),
+            replay_buffer=BasicReplayBuffer(capacity=8 * 16 * 1024)), 1024, 16),
+        "tabular q": (PearlAgent(
+            policy_learner=TabularQLearning(num_states=4, learning_rate=0.5),
+            replay_buffer=BasicReplayBuffer(capacity=16)), 16, 64),
+    }
+    out = {}
+    for name, (agent, n, lpc) in cases.items():
+        spl = 8 if name == "two-tower dqn" else 1
+        init_fn, run_fn = make_compiled_runner(agent, env, num_envs=n, steps_per_learn=spl,
+                                               learns_per_call=lpc)
+        astate, env_states = init_fn(0)
+        gen = make_generator(0, "cuda")
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rate = spl * lpc * n / (time.perf_counter() - t0)
+        assert stats["reward_sum"].item() == spl * lpc * n
+        astate = check_learn_metrics(agent, env, astate, gen, name)
+        if name == "tabular q":
+            q = astate.learner.q_table
+            assert torch.isfinite(q).all() and (q != 0).any()
+        print(f"{name} runner ({n} CartPole envs): {rate:.1f} env-steps/s, the first call "
+              f"on {card}", flush=True)
+        out[name] = rate
     return out
 
 
@@ -1957,6 +2313,26 @@ def main() -> int:
     assert family["by_body"]["tiled"] == 0 < family["by_body"]["rows"], family
     phase("dqn family", t0)
 
+    t0 = time.perf_counter()
+    packed = run_packed_runner(card)
+    phase("packed runner", t0)
+
+    t0 = time.perf_counter()
+    prioritized = run_prioritized_runner(card)
+    phase("prioritized runner", t0)
+
+    t0 = time.perf_counter()
+    run_bootstrapped(card)
+    phase("bootstrapped dqn", t0)
+
+    t0 = time.perf_counter()
+    run_her_learning(card)
+    phase("her learning", t0)
+
+    t0 = time.perf_counter()
+    run_two_tower_and_tabular(card)
+    phase("two-tower dqn and tabular q", t0)
+
     act = timing[ACT_SHAPE[0]]
     kernels = [{
         "name": "fused_mlp",
@@ -1979,6 +2355,8 @@ def main() -> int:
             "curves, lossless (20 dispatches)": curves["lossless"]["counts"],
             "deferred runner (one call)": deferred["counts"],
             "dqn family (1024 envs)": family,
+            "packed runner (one call)": packed["counts"],
+            "prioritized runner (one call)": prioritized["counts"],
         },
         "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],
         "learn_shape": timing[LEARN_SHAPE[0]],

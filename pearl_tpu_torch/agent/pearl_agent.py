@@ -243,7 +243,7 @@ class PearlAgent:
         if self._frame_path:
             return self._observe_frames(astate, result, next_obs, generator)
         astate, transition = self.observe_deferred(astate, result, next_obs, generator)
-        replay_state = self.replay_buffer.push(astate.replay, transition)
+        replay_state = self.replay_buffer.push(astate.replay, transition, generator)
         return dataclasses.replace(astate, replay=replay_state)
 
     def _observe_frames(

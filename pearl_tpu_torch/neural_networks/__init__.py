@@ -6,11 +6,14 @@ from pearl_tpu_torch.neural_networks.actor_networks import (
     VanillaContinuousActorNetwork,
 )
 from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, select_index_last
+from pearl_tpu_torch.neural_networks.epistemic import Epinet, MLPWithPrior
 from pearl_tpu_torch.neural_networks.q_value_networks import (
     CNNQValueNetwork,
     DuelingQValueNetwork,
+    EnsembleQValueNetwork,
     MultiHeadQValueNetwork,
     QuantileQValueNetwork,
+    TwoTowerQValueNetwork,
     VanillaQValueNetwork,
 )
 from pearl_tpu_torch.neural_networks.twin_critic import CNNTwinCritic, TwinCritic
@@ -26,10 +29,14 @@ __all__ = [
     "CNNValueNetwork",
     "DuelingQValueNetwork",
     "DynamicActionActorNetwork",
+    "EnsembleQValueNetwork",
+    "Epinet",
     "GaussianActorNetwork",
+    "MLPWithPrior",
     "MultiHeadQValueNetwork",
     "QuantileQValueNetwork",
     "TwinCritic",
+    "TwoTowerQValueNetwork",
     "VanillaActorNetwork",
     "VanillaContinuousActorNetwork",
     "VanillaQValueNetwork",

@@ -1,7 +1,8 @@
 """Q-value networks (port of `pearl_tpu/neural_networks/q_value_networks.py`:
 `VanillaQValueNetwork`, `MultiHeadQValueNetwork`, `DuelingQValueNetwork`,
-`QuantileQValueNetwork` and `CNNQValueNetwork` with its two opt-in act
-branches, the conv1 cache and the ring conv).
+`TwoTowerQValueNetwork`, `QuantileQValueNetwork`, `EnsembleQValueNetwork` and
+`CNNQValueNetwork` with its two opt-in act branches, the conv1 cache and the
+ring conv).
 
 Each network is a frozen-dataclass adapter over an `nn.Module`, with the
 reference's protocol:
@@ -11,7 +12,9 @@ reference's protocol:
 
 `generator` is a CPU `torch.Generator` for the weight init; move the module
 to its device afterwards. The quantile network adds
-`quantiles_all(params, state, actions, mask) -> (B, A, N)`.
+`quantiles_all(params, state, actions, mask) -> (B, A, N)`, the ensemble
+`q_ensemble(params, state, actions, mask) -> (B, K, A)`; the ensemble's
+params are a dict {"train", "prior"} of two modules (see its docstring).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, nchw_images
+from pearl_tpu_torch.neural_networks.twin_critic import StackedPairQNet
 from pearl_tpu_torch.ops.conv_cache import cache_write, gather_sum
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp_from_module
 from pearl_tpu_torch.ops.layout_fence import copy_fence, masked_scale_fence, masked_scale_fence4
@@ -141,6 +145,54 @@ class DuelingQValueNetwork:
         return params(state, actions, mask)
 
 
+class _TwoTowerNet(nn.Module):
+    """A state tower and an action tower (relu on their last layers too),
+    concatenated into the interaction MLP (flax `_TwoTowerNet`:
+    `state_tower`, `action_tower`, `interaction`)."""
+
+    def __init__(self, state_dim, action_dim, state_hidden_dims, action_hidden_dims,
+                 hidden_dims, state_output_dim, action_output_dim, generator=None):
+        super().__init__()
+        self.state_tower = MLP(state_dim, state_hidden_dims, state_output_dim,
+                               generator=generator, last_activation="relu")
+        self.action_tower = MLP(action_dim, action_hidden_dims, action_output_dim,
+                                generator=generator, last_activation="relu")
+        self.interaction = MLP(state_output_dim + action_output_dim, hidden_dims, 1,
+                               generator=generator)
+
+    def forward(self, state, actions):
+        """state (B, s), actions (B, A, a) -> (B, A). The state tower runs
+        once per state, not once per (state, action) pair: the same rows as
+        the reference's, which evaluates it B * A times."""
+        B, A = actions.shape[0], actions.shape[1]
+        s = self.state_tower(state)
+        a = self.action_tower(actions.reshape(B * A, -1)).reshape(B, A, -1)
+        x = torch.cat([s[:, None, :].expand(B, A, s.shape[-1]), a], dim=-1)
+        return self.interaction(x.reshape(B * A, -1)).reshape(B, A)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoTowerQValueNetwork:
+    """Two-tower Q: a plain PyTorch product, as the reference computes it
+    outside any TPU kernel."""
+
+    state_hidden_dims: Sequence[int] = (64,)
+    action_hidden_dims: Sequence[int] = (64,)
+    hidden_dims: Sequence[int] = (64, 64)
+    state_output_dim: int = 64
+    action_output_dim: int = 64
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
+        del num_actions
+        return _TwoTowerNet(
+            state_dim, action_dim, tuple(self.state_hidden_dims), tuple(self.action_hidden_dims),
+            tuple(self.hidden_dims), self.state_output_dim, self.action_output_dim, generator,
+        )
+
+    def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        return params(state, actions)
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantileQValueNetwork:
     """Quantile-distributional Q: a concat-MLP with `num_quantiles` outputs
@@ -170,6 +222,53 @@ class QuantileQValueNetwork:
     def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
         """The risk-neutral Q: the mean over quantiles."""
         return self.quantiles_all(params, state, actions, mask).mean(dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleQValueNetwork:
+    """K concat-MLP Q-networks, each plus a frozen random prior scaled by
+    `prior_scale` (the reference's `_PriorQNet` members over `Ensemble`).
+
+    `init` returns a dict {"train": StackedPairQNet, "prior":
+    StackedPairQNet} (move each to its device): the K members stacked (kernels (K, in, out)),
+    all K evaluated as one batched product per layer, as the twin critic's
+    two. The prior's parameters have `requires_grad=False`, and a learner
+    hands only "train" to its optimizer and to its target copy
+    (`BootstrappedDQN` keeps the prior in its state apart from `params`), so
+    neither weight decay nor a target update reaches it. `q_ensemble` takes
+    any mapping with those two keys."""
+
+    hidden_dims: Sequence[int] = (64, 64)
+    ensemble_size: int = 10
+    prior_scale: float = 0.3
+
+    def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
+        del num_actions
+        K, hidden = self.ensemble_size, tuple(self.hidden_dims)
+        train = StackedPairQNet(K, state_dim, action_dim, hidden, generator)
+        prior = StackedPairQNet(K, state_dim, action_dim, hidden, generator)
+        return {"train": train, "prior": prior.requires_grad_(False)}
+
+    def q_ensemble(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        """(B, K, A): every member's Q of every candidate action; no gradient
+        reaches the prior."""
+        B, A = actions.shape[0], actions.shape[1]
+        s = state[:, None, :].expand(B, A, state.shape[-1]).reshape(B * A, -1)
+        a = actions.reshape(B * A, -1)
+        q = params["train"](s, a)
+        with torch.no_grad():
+            prior = params["prior"](s, a)
+        q = q + self.prior_scale * prior  # (K, B*A)
+        return q.reshape(-1, B, A).transpose(0, 1)
+
+    def q_member(self, params, state, actions, z, mask: Optional[torch.Tensor] = None):
+        """(B, A): Q under each row's member index z (B,)."""
+        q = self.q_ensemble(params, state, actions, mask)
+        return q.gather(1, z.long()[:, None, None].expand(-1, 1, q.shape[-1]))[:, 0]
+
+    def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
+        """The ensemble mean (acting without deep exploration)."""
+        return self.q_ensemble(params, state, actions, mask).mean(dim=1)
 
 
 class _CNNQNet(nn.Module):

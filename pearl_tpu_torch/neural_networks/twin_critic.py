@@ -69,12 +69,13 @@ class StackedMLP(nn.Module):
         return layers[-1](x)
 
 
-class _TwinPairQNet(nn.Module):
-    """Two `_PairQNet`s, stacked: concat(state, action) -> (2, N)."""
+class StackedPairQNet(nn.Module):
+    """`members` `_PairQNet`s, stacked: concat(state, action) -> (members, N).
+    The twin critic's two members and the ensemble Q-network's K."""
 
-    def __init__(self, state_dim, action_dim, hidden_dims, generator=None):
+    def __init__(self, members, state_dim, action_dim, hidden_dims, generator=None):
         super().__init__()
-        self.MLP_0 = StackedMLP(2, state_dim + action_dim, hidden_dims, 1, generator)
+        self.MLP_0 = StackedMLP(members, state_dim + action_dim, hidden_dims, 1, generator)
 
     def forward(self, state, action):
         return self.MLP_0(torch.cat([state, action], dim=-1))[..., 0]
@@ -85,7 +86,7 @@ class TwinCritic:
     hidden_dims: Sequence[int] = (64, 64)
 
     def init(self, generator, state_dim: int, action_dim: int) -> nn.Module:
-        return _TwinPairQNet(state_dim, action_dim, tuple(self.hidden_dims), generator)
+        return StackedPairQNet(2, state_dim, action_dim, tuple(self.hidden_dims), generator)
 
     def q_both(self, params, state, action) -> Tuple[torch.Tensor, torch.Tensor]:
         """(q1, q2), each (B,)."""

@@ -14,9 +14,15 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
     model_action_index,
     uniform_index,
 )
+from pearl_tpu_torch.policy_learners.exploration_modules.deep_exploration import (
+    DeepExploration,
+    DeepExplorationState,
+)
 
 __all__ = [
     "BoltzmannExploration",
+    "DeepExploration",
+    "DeepExplorationState",
     "EGreedyExploration",
     "ExplorationModule",
     "ExplorationModuleWrapper",

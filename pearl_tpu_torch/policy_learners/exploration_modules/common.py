@@ -35,7 +35,7 @@ import torch
 
 
 class ExplorationModule:
-    def init(self, num_envs: int):
+    def init(self, num_envs: int, device=None):
         return ()
 
     def act(self, state, scores, exploit_index, mask, generator):
@@ -148,7 +148,7 @@ class EGreedyExploration(ExplorationModule):
     end_epsilon: Optional[float] = None
     warmup_steps: Optional[int] = None
 
-    def init(self, num_envs: int) -> int:
+    def init(self, num_envs: int, device=None) -> int:
         return 0  # env steps seen
 
     def current_epsilon(self, step: int) -> float:
@@ -244,8 +244,8 @@ class ExplorationModuleWrapper(ExplorationModule):
 
     base: ExplorationModule = dataclasses.field(default_factory=NoExploration)
 
-    def init(self, num_envs: int):
-        return self.base.init(num_envs)
+    def init(self, num_envs: int, device=None):
+        return self.base.init(num_envs, device)
 
     def act(self, state, scores, exploit_index, mask, generator, **draws):
         return self.base.act(state, scores, exploit_index, mask, generator, **draws)
@@ -266,8 +266,8 @@ class Warmup(ExplorationModule):
     base: ExplorationModule = dataclasses.field(default_factory=NoExploration)
     warmup_steps: int = 0
 
-    def init(self, num_envs: int):
-        return (0, self.base.init(num_envs))
+    def init(self, num_envs: int, device=None):
+        return (0, self.base.init(num_envs, device))
 
     def act(self, state, scores, exploit_index, mask, generator, random_index=None, **draws):
         count, base_state = state

@@ -137,18 +137,27 @@ class PolicyLearner(abc.ABC):
         indices: Optional[torch.Tensor] = None,
     ):
         """training_rounds x (sample -> preprocess_batch -> learn_batch). `indices`
-        (training_rounds, batch_size) replaces the sampled indices. Metrics
-        are averaged over rounds and stay on the device."""
+        (training_rounds, batch_size) replaces the sampled indices. A buffer
+        with `update_priorities` (prioritized replay) gets each round's
+        per-sample |TD| written back at that round's indices when the learner
+        reports `per_sample_td`. Metrics are averaged over rounds and stay on
+        the device."""
+        prioritized = hasattr(buffer, "update_priorities")
         rounds = []
         for r in range(self.training_rounds):
-            batch = buffer.sample(
-                buffer_state,
-                generator,
-                self.batch_size,
-                indices=None if indices is None else indices[r],
-            )
+            idx = None if indices is None else indices[r]
+            if prioritized:
+                batch, idx = buffer.sample_with_indices(
+                    buffer_state, generator, self.batch_size, indices=idx
+                )
+            else:
+                batch = buffer.sample(buffer_state, generator, self.batch_size, indices=idx)
             batch = self.preprocess_batch(state, batch)
             state, metrics = self.learn_batch(state, batch)
+            if prioritized and "per_sample_td" in metrics:
+                buffer_state = buffer.update_priorities(
+                    buffer_state, idx, metrics["per_sample_td"]
+                )
             rounds.append({k: v for k, v in metrics.items() if k != "per_sample_td"})
         metrics = {k: torch.stack([m[k] for m in rounds]).mean() for k in rounds[0]}
         return state, buffer_state, metrics

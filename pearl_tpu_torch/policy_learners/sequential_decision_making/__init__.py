@@ -2,6 +2,10 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.actor_critic_bas
     ActorCriticBase,
     ActorCriticState,
 )
+from pearl_tpu_torch.policy_learners.sequential_decision_making.bootstrapped_dqn import (
+    BootstrappedDQN,
+    BootstrappedDQNState,
+)
 from pearl_tpu_torch.policy_learners.sequential_decision_making.ddpg import (
     DeepDeterministicPolicyGradient,
 )
@@ -31,18 +35,26 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.sac_continuous i
     AlphaState,
     ContinuousSoftActorCritic,
 )
+from pearl_tpu_torch.policy_learners.sequential_decision_making.tabular_q import (
+    DictTabularQLearning,
+    TabularQLearning,
+    TabularQState,
+)
 from pearl_tpu_torch.policy_learners.sequential_decision_making.td3 import TD3, TD3BC
 
 __all__ = [
     "ActorCriticBase",
     "ActorCriticState",
     "AlphaState",
+    "BootstrappedDQN",
+    "BootstrappedDQNState",
     "ContinuousSoftActorCritic",
     "DeepDeterministicPolicyGradient",
     "DeepQLearning",
     "DeepSARSA",
     "DeepTDLearning",
     "DeepTDState",
+    "DictTabularQLearning",
     "DoubleDQN",
     "ProximalPolicyOptimization",
     "QuantileRegressionDeepQLearning",
@@ -50,6 +62,8 @@ __all__ = [
     "SoftActorCritic",
     "TD3",
     "TD3BC",
+    "TabularQLearning",
+    "TabularQState",
     "discounted_returns",
     "gae_lambda_returns",
     "twin_q_all",

@@ -243,7 +243,7 @@ class ActorCriticBase(PolicyLearner):
                 else None
             ),
             summ_opt=_adamw(summ, self.history_summarization_learning_rate) if summ else None,
-            explore_state=self.exploration.init(num_envs),
+            explore_state=self.exploration.init(num_envs, device),
             step=0,
             low=low,
             high=high,

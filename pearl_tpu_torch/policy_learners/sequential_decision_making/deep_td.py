@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Optional
+from typing import Any, ClassVar, Optional
 
 import torch
 from torch import nn
@@ -90,6 +90,8 @@ class DeepTDLearning(PolicyLearner):
     conservative_alpha: float = 2.0
     act_dtype: Optional[str] = None
 
+    state_type: ClassVar[type] = DeepTDState
+
     def optimizer(self, params: nn.Module) -> torch.optim.Optimizer:
         return torch.optim.AdamW(
             params.parameters(),
@@ -99,9 +101,18 @@ class DeepTDLearning(PolicyLearner):
             weight_decay=self.weight_decay,
         )
 
+    def _exploration(self) -> ExplorationModule:
+        return self.exploration
+
+    def _init_q(self, generator, subj_dim: int, rep_dim: int, num_actions: int, device):
+        """(the trainable Q params on `device`, extra fields of the state). A
+        learner whose network has parts outside the optimizer and the target
+        copy returns them as extra fields."""
+        return self.q_network.init(generator, subj_dim, rep_dim, num_actions).to(device), {}
+
     def init(self, generator, observation_dim: int, action_space, num_envs: int, device):
         subj_dim, rep_dim, num_actions = self.dims(observation_dim, action_space)
-        params = self.q_network.init(generator, subj_dim, rep_dim, num_actions).to(device)
+        params, extra = self._init_q(generator, subj_dim, rep_dim, num_actions, device)
         target = copy.deepcopy(params).requires_grad_(False)
         act_params = None
         if self.act_dtype is not None:
@@ -112,17 +123,18 @@ class DeepTDLearning(PolicyLearner):
         if self.breaks_ties:
             seed = int(torch.randint(0, 2**62, (), generator=generator))
             tie_generator = torch.Generator(device=device).manual_seed(seed)
-        return DeepTDState(
+        return self.state_type(
             params=params,
             target_params=target,
             summarizer_params=summ_params,
             optimizer=self.optimizer(params),
-            explore_state=self.exploration.init(num_envs),
+            explore_state=self._exploration().init(num_envs, device),
             step=0,
             action_elements=elements,
             action_reps=reps,
             act_params=act_params,
             tie_generator=tie_generator,
+            **extra,
         )
 
     def _act_dtype(self) -> torch.dtype:
@@ -172,7 +184,7 @@ class DeepTDLearning(PolicyLearner):
         if exploit:
             index, explore_state = exploit_index, state.explore_state
         else:
-            explore_state, index = self.exploration.act(
+            explore_state, index = self._exploration().act(
                 state.explore_state, scores, exploit_index, mask, generator
             )
         action = state.action_elements[index.long()]
@@ -233,7 +245,7 @@ class DeepTDLearning(PolicyLearner):
     def episode_reset(self, state, done_mask, generator):
         return dataclasses.replace(
             state,
-            explore_state=self.exploration.reset(state.explore_state, done_mask, generator),
+            explore_state=self._exploration().reset(state.explore_state, done_mask, generator),
         )
 
 

@@ -1,11 +1,16 @@
 """Device-resident ring-buffer replay (port of
-`pearl_tpu/replay_buffers/replay_buffer.py`, `BasicReplayBuffer`).
+`pearl_tpu/replay_buffers/replay_buffer.py`: `BasicReplayBuffer` and
+`SingleTransitionReplayBuffer`).
 
 Storage is a preallocated `TransitionBatch` of (capacity, ...) tensors on the
 device. `push` writes in place (the reference returns a new array; in place
 saves a copy of the whole ring per step). The cursor and size are host
 integers: every push has a size known on the host, so tracking them costs no
 device sync.
+
+`push` takes the device generator of the step as every buffer's `push` does
+(`BootstrapReplayBuffer` draws its masks from it); a buffer that draws
+nothing ignores it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ class BasicReplayBuffer:
     """Uniform FIFO replay, sampled uniformly with replacement."""
 
     capacity: int = 10_000
+    # Store float32 fields as bfloat16 (half the memory and the push and
+    # sample traffic); `gather` casts them back to float32.
+    bf16_storage: bool = False
 
     @property
     def supports_deferred_push(self) -> bool:
@@ -48,27 +56,31 @@ class BasicReplayBuffer:
         device (only its shapes, dtypes and device are used)."""
         storage = tree_map(
             lambda x: torch.zeros(
-                (self.capacity,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device
+                (self.capacity,) + tuple(x.shape[1:]), dtype=self._store_dtype(x.dtype),
+                device=x.device,
             ),
             example,
         )
         return ReplayBufferState(storage=storage, cursor=0, size=0)
 
-    def push(self, state: ReplayBufferState, batch: TransitionBatch) -> ReplayBufferState:
+    def _store_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        if self.bf16_storage and dtype == torch.float32:
+            return torch.bfloat16
+        return dtype
+
+    def push(
+        self,
+        state: ReplayBufferState,
+        batch: TransitionBatch,
+        generator: Optional[torch.Generator] = None,
+    ) -> ReplayBufferState:
         """Write a batch of N transitions at the cursor as one contiguous
         slice. Bump ring: if the batch would not fit before the end, the
         write restarts at slot 0 instead of wrapping mid-batch, and `size` is
         the high-water mark, so never-written tail slots are never sampled
         (the reference's semantics, replay_buffer.py:113-125)."""
         n = batch.batch_size
-        if self.capacity % n != 0:
-            warnings.warn(
-                f"Replay capacity {self.capacity} is not a multiple of the push "
-                f"batch size {n}: the last {self.capacity % n} slots are never "
-                "written or sampled.",
-                stacklevel=2,
-            )
-        start = state.cursor if state.cursor + n <= self.capacity else 0
+        start = self._push_start(state, n)
 
         def _write(buf, v):
             buf[start : start + n].copy_(v)
@@ -81,17 +93,38 @@ class BasicReplayBuffer:
             size=max(state.size, start + n),
         )
 
+    def _push_start(self, state: ReplayBufferState, n: int) -> int:
+        """The bump ring's first row for a push of n rows."""
+        self._warn_if_misaligned(n)
+        return state.cursor if state.cursor + n <= self.capacity else 0
+
+    def _warn_if_misaligned(self, n: int) -> None:
+        if self.capacity % n != 0:
+            warnings.warn(
+                f"Replay capacity {self.capacity} is not a multiple of the push "
+                f"batch size {n}: the last {self.capacity % n} slots are never "
+                "written or sampled.",
+                stacklevel=4,
+            )
+
+    def device(self, state: ReplayBufferState) -> torch.device:
+        return state.storage.reward.device
+
     def sample_indices(
         self, state: ReplayBufferState, generator: torch.Generator, batch_size: int
     ) -> torch.Tensor:
         """Uniform indices over the written extent, on the storage device."""
-        device = state.storage.reward.device
         return torch.randint(
-            0, max(state.size, 1), (batch_size,), generator=generator, device=device
+            0, max(state.size, 1), (batch_size,), generator=generator,
+            device=self.device(state),
         )
 
     def gather(self, state: ReplayBufferState, idx: torch.Tensor) -> TransitionBatch:
-        return tree_map(lambda buf: buf[idx], state.storage)
+        """The rows `idx`, bfloat16 storage cast back to float32."""
+        return tree_map(
+            lambda buf: buf[idx].to(torch.float32) if buf.dtype == torch.bfloat16 else buf[idx],
+            state.storage,
+        )
 
     def sample(
         self,
@@ -110,3 +143,15 @@ class BasicReplayBuffer:
 
     def __len__(self) -> int:
         return self.capacity
+
+
+@dataclasses.dataclass(frozen=True)
+class SingleTransitionReplayBuffer(BasicReplayBuffer):
+    """A one-row buffer, the default of the tabular and bandit learners: it
+    holds the last transition of one env."""
+
+    capacity: int = 1
+
+    @property
+    def supports_deferred_push(self) -> bool:
+        return False  # a chunk of k * B rows cannot fit one row

@@ -43,7 +43,12 @@ class SARSAReplayBuffer(BasicReplayBuffer):
     def supports_deferred_push(self) -> bool:
         return False  # the pending cache pairs rows step by step
 
-    def push(self, state: SARSABufferState, batch: TransitionBatch) -> SARSABufferState:
+    def push(
+        self,
+        state: SARSABufferState,
+        batch: TransitionBatch,
+        generator: Optional[torch.Generator] = None,
+    ) -> SARSABufferState:
         base = ReplayBufferState(storage=state.storage, cursor=state.cursor, size=state.size)
         if state.pending_valid:
             committed = dataclasses.replace(

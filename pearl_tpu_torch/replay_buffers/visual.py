@@ -177,7 +177,12 @@ class VisualReplayBuffer(BasicReplayBuffer):
             push_count=state.push_count + 1,
         )
 
-    def push(self, state: VisualBufferState, batch: TransitionBatch) -> VisualBufferState:
+    def push(
+        self,
+        state: VisualBufferState,
+        batch: TransitionBatch,
+        generator: Optional[torch.Generator] = None,
+    ) -> VisualBufferState:
         F = self._frame_size(batch.state.shape[-1])
         return self.push_frames(state, batch.state[:, -F:], batch.next_state[:, -F:], batch)
 

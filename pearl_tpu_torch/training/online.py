@@ -231,7 +231,7 @@ def _make_chunk_fn(
                 # One step-major push of k * B rows.
                 flat = tree_map(lambda *xs: torch.cat(xs), *transitions)
                 astate = dataclasses.replace(
-                    astate, replay=agent.replay_buffer.push(astate.replay, flat)
+                    astate, replay=agent.replay_buffer.push(astate.replay, flat, generator)
                 )
             if do_learn:
                 astate, _ = agent.learn(astate, generator)

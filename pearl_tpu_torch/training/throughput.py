@@ -79,9 +79,8 @@ def make_compiled_runner(
                 episodes += result.done.sum()
             if deferred_push:
                 flat = tree_map(lambda *xs: torch.cat(xs), *transitions)
-                agent_state = dataclasses.replace(
-                    agent_state, replay=agent.replay_buffer.push(agent_state.replay, flat)
-                )
+                replay = agent.replay_buffer.push(agent_state.replay, flat, generator)
+                agent_state = dataclasses.replace(agent_state, replay=replay)
             if learn:
                 agent_state, _ = agent.learn(agent_state, generator)
         return agent_state, env_states, {"reward_sum": reward_sum, "episodes": episodes}

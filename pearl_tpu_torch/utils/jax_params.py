@@ -24,6 +24,14 @@ The continuous-control networks: `GaussianActorNetwork`'s tree is
 `{"MLP_0": {...}}` with a leading 2 on every leaf (the two members'
 stacked params), which the port keeps as they are.
 
+The ensemble and epistemic networks: `EnsembleQValueNetwork`'s tree is
+`{"train", "prior"}`, each `{"MLP_0": {...}}` with a leading K on every leaf
+(`load_flax_ensemble_q_params`); `TwoTowerQValueNetwork`'s `{"state_tower",
+"action_tower", "interaction"}`; `MLPWithPrior`'s `{"train", "prior"}` of
+bare MLP trees and `Epinet`'s `{"train": {"MLP_0"}, "prior": {"MLP_0"}}`
+with the prior stacked (`load_flax_mlp_with_prior_params`,
+`load_flax_epinet_params`).
+
 The discrete actors and the value networks: `VanillaActorNetwork`,
 `DynamicActionActorNetwork` and `VanillaValueNetwork` have `{"MLP_0":
 {...}}`, `CNNActorNetwork` and `CNNValueNetwork` the CNN Q-network's tree
@@ -112,23 +120,73 @@ def load_flax_deterministic_actor_params(net: nn.Module, params: Mapping) -> nn.
 
 
 @torch.no_grad()
-def load_flax_twin_critic_params(net: nn.Module, params: Mapping) -> nn.Module:
-    """Load a `TwinCritic`'s stacked flax params, every leaf with its leading
-    2, into the port's `_TwinPairQNet` (the same layout); returns `net`."""
-    _check_keys(params, ("MLP_0",))
-    mlp = net.MLP_0
-    if set(params["MLP_0"]) != set(mlp.layer_names):
-        raise ValueError(
-            f"flax MLP layers {sorted(params['MLP_0'])} != port layers {mlp.layer_names}"
-        )
+def load_flax_stacked_mlp(mlp: nn.Module, params: Mapping) -> None:
+    """Copy a flax `MLP` under `vmap` (every leaf with a leading members
+    axis, kernels (members, in, out)) into a `twin_critic.StackedMLP`, which
+    keeps that layout."""
+    if set(params) != set(mlp.layer_names):
+        raise ValueError(f"flax MLP layers {sorted(params)} != port layers {mlp.layer_names}")
     for name, layer in zip(mlp.layer_names, mlp.layers()):
         for leaf in ("kernel", "bias"):
-            value, target = _np(params["MLP_0"][name][leaf]), getattr(layer, leaf)
+            value, target = _np(params[name][leaf]), getattr(layer, leaf)
             if value.shape != target.shape:
                 raise ValueError(
                     f"{name}.{leaf}: flax {tuple(value.shape)} != port {tuple(target.shape)}"
                 )
             target.copy_(value)
+
+
+def load_flax_twin_critic_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load stacked `_PairQNet` params, `{"MLP_0": ...}` with a leading
+    members axis on every leaf (a `TwinCritic`'s 2, an ensemble's K), into
+    the port's `StackedPairQNet` (the same layout); returns `net`."""
+    _check_keys(params, ("MLP_0",))
+    load_flax_stacked_mlp(net.MLP_0, params["MLP_0"])
+    return net
+
+
+def load_flax_ensemble_q_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load an `EnsembleQValueNetwork`'s flax params, `{"train", "prior"}`,
+    each the stacked `_PriorQNet` tree `{"MLP_0": ...}` with a leading K,
+    into the port's dict of two `StackedPairQNet`s; returns `net`.
+    `BootstrappedDQN` keeps the two apart: load its `state.params` (and
+    `target_params`) from `params["train"]` and its `state.prior_params`
+    from `params["prior"]` with `load_flax_twin_critic_params`."""
+    _check_keys(params, ("train", "prior"))
+    for name in ("train", "prior"):
+        load_flax_twin_critic_params(net[name], params[name])
+    return net
+
+
+def load_flax_two_tower_q_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `TwoTowerQValueNetwork`'s flax params, `{"state_tower",
+    "action_tower", "interaction"}`, into the port's `_TwoTowerNet`; returns
+    `net`."""
+    names = ("state_tower", "action_tower", "interaction")
+    _check_keys(params, names)
+    for name in names:
+        load_flax_mlp(getattr(net, name), params[name])
+    return net
+
+
+def load_flax_mlp_with_prior_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load an `MLPWithPrior`'s flax params, `{"train", "prior"}`, each a
+    bare `MLP` tree, into the port's dict of two `MLP`s; returns `net`."""
+    _check_keys(params, ("train", "prior"))
+    for name in ("train", "prior"):
+        load_flax_mlp(net[name], params[name])
+    return net
+
+
+def load_flax_epinet_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load an `Epinet`'s flax params, `{"train": {"MLP_0": ...}, "prior":
+    {"MLP_0": ...}}` (the prior stacked over index_dim nets), into the
+    port's dict of two modules; returns `net`."""
+    _check_keys(params, ("train", "prior"))
+    _check_keys(params["train"], ("MLP_0",))
+    _check_keys(params["prior"], ("MLP_0",))
+    load_flax_mlp(net["train"].MLP_0, params["train"]["MLP_0"])
+    load_flax_stacked_mlp(net["prior"].MLP_0, params["prior"]["MLP_0"])
     return net
 
 

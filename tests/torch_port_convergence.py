@@ -2,14 +2,17 @@
 of tests/integration/test_convergence.py: CartPole 500 with the multi-head
 Q-network (:48-79, the learning phase of chip_smoke.py), with Dueling DQN,
 QR-DQN or deep SARSA (:86-110), or with discrete SAC, PPO or REINFORCE
-(:124-158), and Pendulum -250 with continuous SAC, DDPG or TD3 (:62-71,
-:161-187). Not collected by pytest; run it:
+(:124-158), Pendulum -250 with continuous SAC, DDPG or TD3 (:62-71,
+:161-187), and HER on the sparse reach task (:193-219: the success share of
+the last 200 episodes, which the reference holds above 0.95). Not collected
+by pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
     python tests/torch_port_convergence.py --package torch --learner ppo
     python tests/torch_port_convergence.py --package torch --learner qrdqn
     python tests/torch_port_convergence.py --package torch --env pendulum --learner csac
+    python tests/torch_port_convergence.py --package torch --env sparse_reach --learner her
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -20,6 +23,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CARTPOLE = dict(target_return=500.0, target_window=20)
@@ -59,6 +64,10 @@ PENDULUM_LEARNERS = {
     "td3": (dict(training_rounds=2, batch_size=100,
                  actor_learning_rate=1e-3, critic_learning_rate=1e-3), 200_000),
 }
+# test_convergence.py:193-211: DQN with HER on the 8-direction sparse reach
+# task, 150000 env steps, no early stop.
+SPARSE_REACH = dict(length=50.0, num_actions=8, step_size=4.0, reward_distance=4.0, max_steps=40)
+SPARSE_LEARNERS = {"her": 150_000}
 LEARNER_NAMES = {
     "csac": "ContinuousSoftActorCritic", "ddpg": "DeepDeterministicPolicyGradient", "td3": "TD3",
     "sac": "SoftActorCritic", "ppo": "ProximalPolicyOptimization", "reinforce": "REINFORCE",
@@ -82,17 +91,21 @@ def _modules(package):
         buffers = mod("replay_buffers.replay_buffer")
         on_policy = mod("replay_buffers.on_policy")
         sarsa = mod("replay_buffers.sarsa")
+        hindsight = mod("replay_buffers.hindsight")
+        sparse = mod("envs.sparse_reward")
     else:
         import torch
 
         torch.set_num_threads(2)
         q_networks = mod("neural_networks")
-        buffers = on_policy = sarsa = mod("replay_buffers")
+        buffers = on_policy = sarsa = hindsight = mod("replay_buffers")
+        sparse = mod("envs")
     return dict(
         agent=mod("agent"), envs=mod("envs"), q_networks=q_networks,
         exploration=mod("policy_learners.exploration_modules"),
         learners=mod("policy_learners.sequential_decision_making"),
-        buffers=buffers, on_policy=on_policy, sarsa=sarsa, training=mod("training"),
+        buffers=buffers, on_policy=on_policy, sarsa=sarsa, hindsight=hindsight, sparse=sparse,
+        training=mod("training"),
     )
 
 
@@ -126,6 +139,22 @@ def run(package, env_name, learner_name, seed, device):
         return m["training"].online_learning(
             agent, m["envs"].CartPole(), seed=seed, **CARTPOLE, **driver, **extra
         )
+    if env_name == "sparse_reach":
+        num_envs = 16
+        agent = m["agent"].PearlAgent(
+            policy_learner=m["learners"].DeepQLearning(
+                training_rounds=4, batch_size=128,
+                exploration=m["exploration"].EGreedyExploration(epsilon=0.1),
+            ),
+            replay_buffer=m["hindsight"].HindsightExperienceReplayBuffer(
+                capacity=100_000, num_envs=num_envs, max_episode_len=40, goal_dim=2
+            ),
+        )
+        return m["training"].online_learning(
+            agent, m["sparse"].DiscreteSparseRewardEnvironment(**SPARSE_REACH),
+            num_envs=num_envs, max_steps=SPARSE_LEARNERS[learner_name], learn_every_k_steps=2,
+            learning_starts=1_000, seed=seed, **extra,
+        )
     kwargs, budget = PENDULUM_LEARNERS[learner_name]
     learner = getattr(m["learners"], LEARNER_NAMES[learner_name])(**kwargs)
     agent = m["agent"].PearlAgent(
@@ -139,15 +168,18 @@ def run(package, env_name, learner_name, seed, device):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
-    parser.add_argument("--env", choices=("cartpole", "pendulum"), default="cartpole")
-    parser.add_argument("--learner", choices=tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS),
+    parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach"),
+                        default="cartpole")
+    parser.add_argument("--learner", choices=tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
+                        + tuple(SPARSE_LEARNERS),
                         help="dqn, dueling, qrdqn, sarsa, sac, ppo or reinforce on CartPole "
                         "(default dqn); csac, "
-                        "ddpg or td3 on Pendulum (default csac)")
+                        "ddpg or td3 on Pendulum (default csac); her on sparse_reach")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
-    learners = CARTPOLE_LEARNERS if args.env == "cartpole" else PENDULUM_LEARNERS
+    learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
+                "sparse_reach": SPARSE_LEARNERS}[args.env]
     if args.learner is None:
         args.learner = next(iter(learners))
     if args.learner not in learners:
@@ -156,12 +188,18 @@ def main():
     for seed in args.seeds:
         t0 = time.perf_counter()
         res = run(args.package, args.env, args.learner, seed, args.device)
+        extra = {}
+        if args.env == "sparse_reach":
+            # Reached the goal before truncation (test_convergence.py:216).
+            success = np.asarray(res.episode_returns) > -40.0 + 0.5
+            extra = {"success_last_200": float(success[-200:].mean()),
+                     "success_first_200": float(success[:200].mean())}
         print(json.dumps({
             "package": args.package, "env": args.env,
             "learner": args.learner, "seed": seed,
             "reached_target": bool(res.reached_target), "env_steps": int(res.total_steps),
             "episodes": int(len(res.episode_returns)),
-            "seconds": round(time.perf_counter() - t0, 1),
+            "seconds": round(time.perf_counter() - t0, 1), **extra,
         }), flush=True)
 
 
