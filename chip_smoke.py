@@ -84,10 +84,28 @@ Phases, each printing its seconds:
  20. her learning: DQN with HER on the sparse reach task
      (test_convergence.py:193-219), above 0.95 success over the last 200
      episodes;
- 21. two-tower dqn and tabular q: one short runner call each.
+ 21. two-tower dqn and tabular q: one short runner call each;
+ 22. stacking visual runner: bench.py's BENCH_CNN_LEGACY=1 composition (the
+     stacking summarizer over observations) beside the frame-ring runner,
+     interleaved; on the ring runner's window the stacking path gives the
+     ring path's Q values and greedy actions (the ring's oracle);
+ 23. lstm dqn: the registry's LSTMDQN row on positions-only CartPole at 1024
+     envs, the summarizer moving in every learn, a call and a learn without
+     a host sync; then the reference's LSTM learning anchor (mean return of
+     the last tenth of the episodes above 100);
+ 24. transformer dqn: the same with the reference's transformer learner;
+ 25. lstm actor-critic: the registry's LSTMPPO and LSTMSAC rows at 1024 envs;
+ 26. rc: RCCSAC on Pendulum with its torque cost at 16 envs beside CSAC
+     (lambda, episode cost and return after each call), then RCPPO on
+     CartPole with a risky half, the discrete path;
+ 27. masked headline runner: the headline runner on the dynamic action
+     space with the availability masks in replay, beside the plain one,
+     interleaved, B1 at 512 + 128 launches a call on both.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
- 13-15 and 17-18 reach B1 as the runner does, 16 through its multi-head
- DQNs; 19-21 run plain PyTorch products (the reference's are flax stacks).
+ 13-15, 17-18 and 27 reach B1 as the runner does, 16 through its
+ multi-head DQNs; 19-21 and 23-26 run plain PyTorch products and cuDNN's
+ LSTM (the reference's are flax stacks that XLA computes); 22's control
+ runner reaches B7, B3 and B6b as phase 6 does.
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -1239,12 +1257,21 @@ def run_continuous_learning(card):
     return res.total_steps, seconds
 
 
-def kernels_per_step_and_learn(agent, env, astate, env_states, gen, num_envs, after_learn=None):
+# Shorter windows for the replay-variant, history, safety and masked
+# phases: the long ones cost tens of seconds under the profiler at the
+# headline width and at these learns' sizes, and the script must stay
+# within its time limit.
+SHORT_STEPS, SHORT_LEARNS = (4, 20), (2, 6)
+
+
+def kernels_per_step_and_learn(agent, env, astate, env_states, gen, num_envs, after_learn=None,
+                               step_windows=(8, 72), learn_windows=(4, 20)):
     """The device kernels of one env step and of one learn, counted apart:
-    each the difference of two profiled windows of different lengths (8 and
-    72 steps, 4 and 20 learns), so that what a window's edges add or lose
-    cancels. `after_learn(astate)` checks each learn's result. Returns
-    (per step, per learn, step counts, learn counts, the state after)."""
+    each the difference of two profiled windows of different lengths (by
+    default 8 and 72 steps, 4 and 20 learns), so that what a window's edges
+    add or lose cancels. `after_learn(astate)` checks each learn's result.
+    Returns (per step, per learn, step counts, learn counts, the state
+    after)."""
     from pearl_tpu_torch.envs import VectorEnv
 
     bound = agent.for_env(env)
@@ -1271,8 +1298,8 @@ def kernels_per_step_and_learn(agent, env, astate, env_states, gen, num_envs, af
         counts = [device_kernels(lambda: fn(n)) for n in (short, long)]
         return (counts[1] - counts[0]) / (long - short), counts
 
-    per_step, step_counts = per_unit(env_steps, 8, 72)
-    per_learn, learn_counts = per_unit(learns, 4, 20)
+    per_step, step_counts = per_unit(env_steps, *step_windows)
+    per_learn, learn_counts = per_unit(learns, *learn_windows)
     return per_step, per_learn, step_counts, learn_counts, box["astate"], box["env_states"]
 
 
@@ -1865,7 +1892,8 @@ def runner_profiles(runners, names, card):
     for name, wall_s in names.items():
         run_fn, astate, env_states, gen, agent = runners[name]
         per_step, per_learn, _, _, astate, env_states = kernels_per_step_and_learn(
-            agent, CartPole(), astate, env_states, gen, DRV_B)
+            agent, CartPole(), astate, env_states, gen, DRV_B, step_windows=SHORT_STEPS,
+            learn_windows=SHORT_LEARNS)
         prof = profile_fn(lambda: run_fn(astate, env_states, gen), wall_s,
                           unit=f"{name} runner call")
         runners[name][1:3] = [astate, env_states]
@@ -2176,6 +2204,481 @@ def run_two_tower_and_tabular(card):
     return out
 
 
+# Item 16, history and safety: the history runners at 1024 envs with the
+# bootstrapped phase's replay, the reward-constrained learners at the
+# registry's 16 envs. `DEV` is the card.
+DEV = "cuda"
+HIST_B, HIST_CAPACITY = 1_024, 65_536
+LSTM_ANCHOR = dict(num_envs=32, max_steps=100_000, learn_every_k_steps=4, learning_starts=2_000,
+                   seed=7)
+RC_B, RC_LPC, RC_CALLS = 16, 250, 5
+
+
+def partial_cartpole():
+    """CartPole that shows positions only (tests/test_wrappers_and_history.py:
+    106-134; the reference's PartialObservableCartPole)."""
+    from pearl_tpu_torch.envs import CartPole, PartialObservabilityWrapper
+
+    return PartialObservabilityWrapper(env=CartPole(), observed_indices=(0, 2))
+
+
+def lstm_summarizer():
+    from pearl_tpu_torch.history_summarization_modules import LSTMHistorySummarization
+
+    # The registry's LSTM rows (pearl_tpu/benchmarks/configs.py:197-256).
+    return LSTMHistorySummarization(history_length=8, hidden_dim=64, num_layers=1)
+
+
+def history_dqn(summarizer, capacity=HIST_CAPACITY):
+    """DQN at the registry's LSTMDQN row (configs.py:197-210: 2 rounds of
+    128, the ε schedule 0.5 -> 0.05 over 20000 steps) with `summarizer`."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+
+    return PearlAgent(
+        policy_learner=DeepQLearning(
+            training_rounds=2, batch_size=128, history_summarizer=summarizer,
+            exploration=EGreedyExploration(start_epsilon=0.5, end_epsilon=0.05,
+                                           warmup_steps=20_000),
+        ),
+        replay_buffer=BasicReplayBuffer(capacity=capacity),
+    )
+
+
+def learn_moves_summarizer(agent, env, astate, gen, name, learns=4):
+    """`learns` learns one at a time, the first under the sync check: every
+    trainable tensor of the summarizer must change in each, every loss be
+    finite. Returns the state after."""
+    bound = agent.for_env(env)
+    for i in range(learns):
+        params = astate.learner.summarizer_params
+        before = [p.detach().clone() for p in params.parameters()]
+        if i == 0:
+            astate, metrics = no_sync(lambda: bound.learn(astate, gen))
+        else:
+            astate, metrics = bound.learn(astate, gen)
+        moved = [not torch.equal(a, b) for a, b in zip(params.parameters(), before)]
+        values = {k: v.item() for k, v in metrics.items()}
+        assert all(moved) and moved, (name, moved)
+        assert all(math.isfinite(v) for v in values.values()), (name, values)
+    print(f"{name}: the summarizer's {len(moved)} tensors moved in each of {learns} learns "
+          "(the first under the sync check); " + ", ".join(f"{k}={v:.6f}" for k, v in values.items()),
+          flush=True)
+    return astate
+
+
+def history_runner(agent, env, name, card, spl, lpc, calls=2, learn_windows=SHORT_LEARNS):
+    """`make_compiled_runner` at 1024 envs: a warm-up call, `calls` timed
+    ones (the last under the sync check: a call reads nothing back), a
+    profiled call, and the device kernels of one env step and of one learn.
+    Returns (runner state list, the measurements)."""
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    num_envs = HIST_B
+    init_fn, run_fn = make_compiled_runner(agent, env, num_envs=num_envs, steps_per_learn=spl,
+                                           learns_per_call=lpc)
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, DEV)
+    per_call = spl * lpc * num_envs
+    astate, env_states, stats = run_fn(astate, env_states, gen)  # warm-up
+    torch.cuda.synchronize()
+    rates = []
+    for c in range(calls):
+        t0 = time.perf_counter()
+        if c == calls - 1:
+            astate, env_states, stats = no_sync(lambda: run_fn(astate, env_states, gen))
+        else:
+            astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates.append(per_call / (time.perf_counter() - t0))
+    reward_sum = stats["reward_sum"].item()
+    assert math.isfinite(reward_sum) and stats["episodes"].item() >= 0
+    wall = per_call / statistics.mean(rates)
+    prof = profile_fn(lambda: run_fn(astate, env_states, gen), wall, unit=f"{name} call")
+    per_step, per_learn, _, _, astate, env_states = kernels_per_step_and_learn(
+        agent, env, astate, env_states, gen, num_envs, step_windows=SHORT_STEPS,
+        learn_windows=learn_windows)
+    print(f"{name} runner ({num_envs} envs, {spl} steps a learn, {lpc} learns a call): "
+          f"env-steps/s " + ", ".join(f"{r:.1f}" for r in rates)
+          + f" (the last call under the sync check); {per_step:.1f} device kernels per env "
+          f"step, {per_learn:.1f} per learn on {card}", flush=True)
+    return [run_fn, astate, env_states, gen], {
+        "rates": rates, "kernels_per_step": per_step, "kernels_per_learn": per_learn,
+        "profile": prof}
+
+
+def stacking_visual_agent(num_envs):
+    """bench.py:232-274 with BENCH_CNN_LEGACY=1: the stacking summarizer over
+    observations, float32 frames from the env, a bfloat16 replay of two
+    frames a row, bfloat16 acting."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import SyntheticAtari
+    from pearl_tpu_torch.history_summarization_modules import StackingHistorySummarization
+    from pearl_tpu_torch.neural_networks import CNNQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import VisualReplayBuffer
+
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(
+            q_network=CNNQValueNetwork(input_shape=(VIS_H, VIS_W, VIS_T), time_major_stack=True),
+            training_rounds=1, batch_size=VIS_LEARN_B, act_dtype="bfloat16",
+            history_summarizer=StackingHistorySummarization(history_length=VIS_T,
+                                                            include_action=False),
+        ),
+        replay_buffer=VisualReplayBuffer(capacity=8 * num_envs, stack=VIS_T, num_envs=num_envs,
+                                         frame_dtype=torch.bfloat16, dedup_next=False),
+    )
+    return agent, SyntheticAtari(frames=1)
+
+
+def run_stacking_visual(card):
+    """The stacking visual runner (bench.py's BENCH_CNN_LEGACY=1) beside the
+    default frame-ring runner, a warm-up call each, then timed calls in the
+    order ring, stacking, stacking, ring (8 steps a learn, 8 learns a call):
+    the stacking runner launches no frame kernel. Then the oracle: the ring
+    runner's window, materialised, through the stacking path gives the ring
+    path's Q values (float32: 1e-4, cuDNN sums the rolled channels in another
+    order; the bfloat16 act path: 3e-2) and its greedy actions wherever the
+    best two differ by more than that."""
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    spl = lpc = 8
+    runners = {}
+    for name, (agent, env) in (("ring", visual_agent(VIS_B, 1, VIS_LEARN_B)),
+                               ("stacking", stacking_visual_agent(VIS_B))):
+        init_fn, run_fn = make_compiled_runner(agent, env, num_envs=VIS_B, steps_per_learn=spl,
+                                               learns_per_call=lpc)
+        astate, env_states = init_fn(0)
+        gen = make_generator(0, DEV)
+        astate, env_states, _ = run_fn(astate, env_states, gen)  # warm-up
+        runners[name] = [run_fn, astate, env_states, gen, agent, env]
+    torch.cuda.synchronize()
+    wrappers = visual_wrappers()
+    rates = {name: [] for name in runners}
+    launches = {}
+    for name in ("ring", "stacking", "stacking", "ring"):
+        run_fn, astate, env_states, gen, _, _ = runners[name]
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        astate, env_states, stats = run_fn(astate, env_states, gen)
+        torch.cuda.synchronize()
+        rates[name].append(spl * lpc * VIS_B / (time.perf_counter() - t0))
+        launches[name] = {k: fn.launches for k, fn in wrappers.items()}
+        runners[name][1:3] = [astate, env_states]
+        assert 0 <= stats["reward_sum"].item() <= spl * lpc * VIS_B
+    assert sum(launches["stacking"].values()) == 0, launches["stacking"]
+    assert launches["ring"]["ring_write_where"] == spl * lpc, launches["ring"]
+
+    from pearl_tpu_torch.history_summarization_modules import FrameRingView
+
+    _, ring_state, _, _, ring_agent, ring_env = runners["ring"]
+    _, stack_state, _, _, stack_agent, stack_env = runners["stacking"]
+    ring_learner = ring_agent.for_env(ring_env).policy_learner
+    stack_learner = stack_agent.for_env(stack_env).policy_learner
+    view = ring_state.history_carry
+    window = view.materialize().float()
+    params = ring_state.learner.params
+    with torch.no_grad():
+        q_ring = ring_learner.q_network.q_all(
+            params, FrameRingView(view.ring.float(), view.valid, view.cursor), None)
+        q_stack = stack_learner.q_network.q_all(params, window, None)
+        torch.testing.assert_close(q_stack, q_ring, rtol=1e-4, atol=1e-4)
+        # The act path (bfloat16) of each learner, on the ring learner's state.
+        s_ring = ring_learner._scores(ring_state.learner, view, None)
+        s_stack = stack_learner._scores(ring_state.learner, window, None)
+    torch.testing.assert_close(s_stack, s_ring, rtol=0, atol=3e-2)
+    for q, s, tol in ((q_ring, q_stack, 1e-4), (s_ring, s_stack, 3e-2)):
+        top2 = q.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        assert torch.equal(q.argmax(-1)[clear], s.argmax(-1)[clear])
+        agree = int(clear.sum())
+    ratio = statistics.mean(rates["stacking"]) / statistics.mean(rates["ring"])
+    print(f"stacking visual runner ({VIS_B} envs, 84x84, a window of {VIS_T}), env-steps/s in "
+          f"the order run: ring {rates['ring'][0]:.1f}, stacking {rates['stacking'][0]:.1f}, "
+          f"stacking {rates['stacking'][1]:.1f}, ring {rates['ring'][1]:.1f} (stacking / ring "
+          f"{ratio:.3f}); ring launches per call {launches['ring']}, stacking none; oracle: Q "
+          f"within {(q_stack - q_ring).abs().max().item():.3e} (float32) and "
+          f"{(s_stack - s_ring).abs().max().item():.3e} (bfloat16 act), greedy actions equal on "
+          f"the {agree} envs whose best two differ by more than 6e-2 on {card}", flush=True)
+    run_fn, astate, env_states, gen, _, _ = runners["stacking"]
+    profile_fn(lambda: run_fn(astate, env_states, gen),
+               spl * lpc * VIS_B / statistics.mean(rates["stacking"]),
+               unit="stacking visual runner call")
+    return {"rates": rates, "ratio": ratio, "ring_launches": launches["ring"]}
+
+
+def run_lstm_dqn(card):
+    """The registry's LSTMDQN row (configs.py:197-210) on positions-only
+    CartPole at 1024 envs (a learn every 4 steps, 16 learns a call; replay
+    65536 rows); the summarizer moves in every learn; then the reference's
+    learning anchor (tests/test_wrappers_and_history.py:106-134: 32 envs,
+    100000 env steps, seed 7, the mean return of the last tenth of the
+    episodes above 100)."""
+    from pearl_tpu_torch.training import online_learning
+
+    env = partial_cartpole()
+    agent = history_dqn(lstm_summarizer())
+    state, out = history_runner(agent, env, "lstm dqn", card, spl=4, lpc=16)
+    assert state[1].replay.storage.state.shape[-1] == 8 * (2 + 2)
+    learn_moves_summarizer(agent, env, state[1], state[3], "lstm dqn")
+
+    t0 = time.perf_counter()
+    res = online_learning(history_dqn(lstm_summarizer(), capacity=50_000), env, **LSTM_ANCHOR)
+    seconds = time.perf_counter() - t0
+    r = np.asarray(res.episode_returns)
+    n = max(len(r) // 10, 20)
+    last, first = float(r[-n:].mean()), float(r[:n].mean())
+    print(f"lstm dqn learning: mean return {first:.1f} over the first tenth of {len(r)} "
+          f"episodes, {last:.1f} over the last, after {res.total_steps} env steps in "
+          f"{seconds:.1f} s on {card}", flush=True)
+    assert last > 100.0, (first, last)
+    out.update(anchor_last_tenth=last, anchor_seconds=seconds)
+    return out
+
+
+def run_transformer_dqn(card):
+    """tests/test_risk_sensitive_and_transformer.py:139-170's learner (d 64,
+    one layer, 4 heads, a window of 8) on positions-only CartPole at 1024
+    envs, as the LSTM's runner; the summarizer moves in every learn."""
+    from pearl_tpu_torch.history_summarization_modules import TransformerHistorySummarization
+
+    env = partial_cartpole()
+    agent = history_dqn(TransformerHistorySummarization(history_length=8, dim=64, num_layers=1,
+                                                        num_heads=4))
+    state, out = history_runner(agent, env, "transformer dqn", card, spl=4, lpc=16)
+    learn_moves_summarizer(agent, env, state[1], state[3], "transformer dqn")
+    return out
+
+
+def run_lstm_actor_critic(card):
+    """The registry's LSTMPPO (configs.py:222-238: a rollout of 16, 20 rounds
+    of 64, clip 0.1, learning rates 1e-4) and LSTMSAC (:239-256: discrete
+    SAC, 2 rounds of 100, entropy 0.01 fixed, a learn every 4 steps) rows on
+    positions-only CartPole at 1024 envs: the summarizer moves under the sum
+    of the actor's and the critic's gradients, every loss finite."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        ProximalPolicyOptimization, SoftActorCritic,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, OnPolicyReplayBuffer
+
+    env = partial_cartpole()
+    ppo = PearlAgent(
+        policy_learner=ProximalPolicyOptimization(
+            training_rounds=20, batch_size=64, epsilon=0.1, actor_learning_rate=1e-4,
+            critic_learning_rate=1e-4, history_summarizer=lstm_summarizer()),
+        replay_buffer=OnPolicyReplayBuffer(capacity=16 * HIST_B, num_envs=HIST_B),
+    )
+    sac = PearlAgent(
+        policy_learner=SoftActorCritic(
+            training_rounds=2, batch_size=100, entropy_coef=0.01, entropy_autotune=False,
+            actor_learning_rate=1e-3, critic_learning_rate=1e-3,
+            history_summarizer=lstm_summarizer()),
+        replay_buffer=BasicReplayBuffer(capacity=HIST_CAPACITY),
+    )
+    out = {}
+    # A PPO learn is 20 rounds (about 4000 kernels): count over 1 and 2.
+    state, out["lstm ppo"] = history_runner(ppo, env, "lstm ppo", card, spl=16, lpc=2,
+                                            learn_windows=(1, 2))
+    # A whole rollout, then one learn under the checks (the buffer is empty
+    # after every learn).
+    astate = fill_rollout(ppo, env, state[1], state[2], state[3], HIST_B, 16)
+    learn_moves_summarizer(ppo, env, astate, state[3], "lstm ppo", learns=1)
+    state, out["lstm sac"] = history_runner(sac, env, "lstm sac", card, spl=4, lpc=16)
+    learn_moves_summarizer(sac, env, state[1], state[3], "lstm sac")
+    return out
+
+
+def rc_agent(learner, buffer=None):
+    """The registry's `_rc_agent` (configs.py:527-537) at constraint 0.2."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.safety_modules import RCSafetyModuleCostCriticContinuousAction
+
+    return PearlAgent(
+        policy_learner=learner,
+        replay_buffer=buffer if buffer is not None else BasicReplayBuffer(capacity=50_000),
+        safety_module=RCSafetyModuleCostCriticContinuousAction(constraint_value=0.2,
+                                                               batch_size=256),
+        store_cost=True,
+    )
+
+
+def rc_drive(agent, env, astate, gen, rows=4096):
+    """E[max(Q_c1, Q_c2)] * (1 - gamma_c) at `rows` replay states and the
+    policy's actions there: what lambda's update holds against the
+    constraint (lambda rises while it is above)."""
+    bound = agent.for_env(env)
+    module, learner, ls = bound.safety_module, bound.policy_learner, astate.learner
+    batch = bound.replay_buffer.sample(astate.replay, gen, rows)
+    with torch.no_grad():
+        subj = learner.history_summarizer.forward(ls.summarizer_params, batch.state)
+        action = module._policy_action(learner, ls, subj, astate.safety.generator, None)
+        q1, q2 = module._critic().q_both(astate.safety.critic_params, subj, action)
+        return (torch.maximum(q1, q2).mean() * (1.0 - module.cost_discount_factor)).item()
+
+
+def rc_lambda_rises(agent, env, astate, gen, updates=10):
+    """With the constraint at 0, lambda's drive is the cost estimate itself:
+    `updates` module updates from replay must raise lambda from 0, within
+    its box. The agent's own run keeps its constraint."""
+    bound = agent.for_env(env)
+    module = dataclasses.replace(bound.safety_module, constraint_value=0.0)
+    state = dataclasses.replace(astate.safety, lagrangian=torch.zeros((), device=DEV))
+    for _ in range(updates):
+        state, _ = module.learn(state, bound.replay_buffer, astate.replay, gen,
+                                bound.policy_learner, astate.learner)
+    lam = state.lagrangian.item()
+    assert 0.0 < lam <= module.lambda_constraint_ub_value, lam
+    return f"at constraint 0, {updates} updates raise lambda from 0 to {lam:.6f}"
+
+
+def run_rc(card):
+    """RCCSAC (configs.py:401-408) on the safety suite's Pendulum with its
+    torque cost (configs.py:775-784) at 16 envs, beside CSAC without the
+    module on the same env: one learn a step, 250 a call, 5 calls; lambda
+    after each call, the mean episode cost (200 steps an episode, from the
+    costs in replay) and the return; one learn under the sync check. Then
+    RCPPO (configs.py:417-426: 8 rounds of 256, a rollout of 128) on CartPole
+    whose risky half is x > 0, the discrete one-hot path."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole, Pendulum, SafetyWrapper
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        ContinuousSoftActorCritic, ProximalPolicyOptimization,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, OnPolicyReplayBuffer
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    env = Pendulum(emit_torque_cost=True)
+    out = {}
+    for name in ("csac", "rc csac"):
+        learner = ContinuousSoftActorCritic(training_rounds=1, batch_size=256)
+        agent = rc_agent(learner)
+        if name == "csac":  # the same agent without the module; costs still stored
+            agent = PearlAgent(policy_learner=learner, replay_buffer=BasicReplayBuffer(50_000),
+                               store_cost=True)
+        init_fn, run_fn = make_compiled_runner(agent, env, num_envs=RC_B, steps_per_learn=1,
+                                               learns_per_call=RC_LPC)
+        astate, env_states = init_fn(0)
+        gen = make_generator(0, DEV)
+        lambdas, returns, costs = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(RC_CALLS):
+            astate, env_states, stats = run_fn(astate, env_states, gen)
+            episodes = stats["episodes"].item()
+            returns.append(stats["reward_sum"].item() / max(episodes, 1))
+            replay = astate.replay
+            recent = replay.storage.cost[max(replay.cursor - RC_LPC * RC_B, 0):replay.cursor]
+            costs.append(200.0 * recent.mean().item())
+            if name == "rc csac":
+                lambdas.append(astate.safety.lagrangian.item())
+        seconds = time.perf_counter() - t0
+        assert replay.storage.cost.max().item() > 0.0
+        astate, metrics = no_sync(lambda: agent.for_env(env).learn(astate, gen))
+        values = {k: v.item() for k, v in metrics.items()}
+        assert all(math.isfinite(v) for v in values.values()), values
+        drive = ""
+        if name == "rc csac":
+            assert all(0.0 <= lam <= 20.0 for lam in lambdas), lambdas
+            assert all(torch.isfinite(p).all() for p in astate.safety.critic_params.parameters())
+            drive = (f"; the constraint's left side now {rc_drive(agent, env, astate, gen):.4f}"
+                     f"; {rc_lambda_rises(agent, env, astate, gen)}")
+        print(f"{name} ({RC_B} Pendulum envs with torque cost, {RC_CALLS} calls of {RC_LPC} "
+              f"steps, a learn a step, {seconds:.1f} s): lambda after each call "
+              f"{[round(x, 6) for x in lambdas]}, mean episode cost {[round(c, 3) for c in costs]}"
+              f", mean episode return {[round(r, 1) for r in returns]}{drive}; one learn made no "
+              "host sync: " + ", ".join(f"{k}={v:.6f}" for k, v in values.items())
+              + f" on {card}", flush=True)
+        out[name] = {"lambda": lambdas, "episode_cost": costs, "episode_return": returns,
+                     "seconds": seconds}
+
+    safety_env = SafetyWrapper(env=CartPole(), risky_fn=lambda o, a: o[:, 0] > 0)
+    agent = rc_agent(ProximalPolicyOptimization(training_rounds=8, batch_size=256),
+                     buffer=OnPolicyReplayBuffer(capacity=128 * RC_B, num_envs=RC_B))
+    init_fn, run_fn = make_compiled_runner(agent, safety_env, num_envs=RC_B, steps_per_learn=128,
+                                           learns_per_call=1, learn=False)
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, DEV)
+    lambdas = []
+    for _ in range(4):  # a rollout, then a learn (the module's update before the clear)
+        astate, env_states, _ = run_fn(astate, env_states, gen)
+        cost = astate.replay.storage.cost
+        assert cost.max().item() == 1.0 and cost.min().item() == 0.0
+        astate, metrics = agent.for_env(safety_env).learn(astate, gen)
+        lambdas.append(astate.safety.lagrangian.item())
+        assert all(math.isfinite(v.item()) for v in metrics.values())
+    assert all(0.0 <= lam <= 20.0 for lam in lambdas), lambdas
+    print(f"rc ppo ({RC_B} CartPole envs, risky x > 0, rollouts of 128): lambda after each of "
+          f"4 learns {[round(x, 6) for x in lambdas]}, losses finite on {card}", flush=True)
+    out["rc ppo"] = {"lambda": lambdas}
+    return out
+
+
+def run_masked_headline(card):
+    """bench.py:176-211's headline runner on DynamicActionSpaceWrapper(
+    CartPole(), interval 4, num_masked 1) (configs.py:725-727) with
+    `track_available_masks=True`, beside the plain headline runner: a
+    warm-up call each, timed calls in the order plain, masked, masked,
+    plain, B1 at 512 tiled + 128 rows launches a call on both; every stored
+    action was available at act time; then the kernels and a profiled call
+    of each (the two (131072, 2) bool columns' card time is the difference
+    of busy time)."""
+    from pearl_tpu_torch.envs import CartPole, DynamicActionSpaceWrapper
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    masked_env = DynamicActionSpaceWrapper(env=CartPole(), interval=4, num_masked=1)
+    agent = dataclasses.replace(headline_agent(), track_available_masks=True)
+    init_fn, run_fn = make_compiled_runner(agent, masked_env, num_envs=DRV_B,
+                                           steps_per_learn=DRV_SPL, learns_per_call=DRV_CPD)
+    astate, env_states = init_fn(0)
+    gen = make_generator(0, DEV)
+    astate, env_states, _ = run_fn(astate, env_states, gen)  # warm-up
+    torch.cuda.synchronize()
+    runners = {"plain": headline_runner(), "masked": [run_fn, astate, env_states, gen, agent]}
+    rates, counts = interleaved_calls(runners, ("plain", "masked", "masked", "plain"), card,
+                                      "masked headline runner")
+    replay = runners["masked"][1].replay
+    size = replay.size
+    curr = replay.storage.curr_available_mask[:size]
+    nxt = replay.storage.next_available_mask[:size]
+    index = replay.storage.action_index[:size].long()
+    chosen = curr.gather(1, index[:, None])[:, 0]
+    assert chosen.all(), int((~chosen).sum())
+    hidden = int((~nxt[:, 1]).sum())
+    assert hidden > 0 and nxt[:, 0].all()
+    walls = {n: DRV_B * DRV_SPL * DRV_CPD / statistics.mean(r) for n, r in rates.items()}
+    profiles = {}
+    for name in ("plain", "masked"):
+        run_fn, astate, env_states, gen, _ = runners[name]
+        env = masked_env if name == "masked" else CartPole()
+        per_step, per_learn, _, _, astate, env_states = kernels_per_step_and_learn(
+            runners[name][4], env, astate, env_states, gen, DRV_B, step_windows=SHORT_STEPS,
+            learn_windows=SHORT_LEARNS)
+        prof = profile_fn(lambda: run_fn(astate, env_states, gen), walls[name],
+                          unit=f"{name} headline runner call")
+        profiles[name] = {"kernels_per_step": per_step, "kernels_per_learn": per_learn,
+                          "profile": prof}
+    ratio = statistics.mean(rates["masked"]) / statistics.mean(rates["plain"])
+    busy = [profiles[n]["profile"]["busy_ms"] if profiles[n]["profile"] else float("nan")
+            for n in ("plain", "masked")]
+    print(f"masked headline runner: masked / plain env-steps/s {ratio:.3f}; every one of "
+          f"{size} stored actions was available at act time ({hidden} next states hid action "
+          f"1); device kernels per env step {profiles['plain']['kernels_per_step']:.1f} -> "
+          f"{profiles['masked']['kernels_per_step']:.1f}, per learn "
+          f"{profiles['plain']['kernels_per_learn']:.1f} -> "
+          f"{profiles['masked']['kernels_per_learn']:.1f}; busy {busy[0]:.3f} -> {busy[1]:.3f} "
+          f"ms a call (the mask columns and the mask's kernels: {busy[1] - busy[0]:.3f} ms) on "
+          f"{card}", flush=True)
+    return {"rates": rates, "ratio": ratio, "counts": counts["masked"], "profiles": profiles}
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -2333,6 +2836,30 @@ def main() -> int:
     run_two_tower_and_tabular(card)
     phase("two-tower dqn and tabular q", t0)
 
+    t0 = time.perf_counter()
+    run_stacking_visual(card)
+    phase("stacking visual runner", t0)
+
+    t0 = time.perf_counter()
+    run_lstm_dqn(card)
+    phase("lstm dqn", t0)
+
+    t0 = time.perf_counter()
+    run_transformer_dqn(card)
+    phase("transformer dqn", t0)
+
+    t0 = time.perf_counter()
+    run_lstm_actor_critic(card)
+    phase("lstm actor-critic", t0)
+
+    t0 = time.perf_counter()
+    run_rc(card)
+    phase("rc", t0)
+
+    t0 = time.perf_counter()
+    masked = run_masked_headline(card)
+    phase("masked headline runner", t0)
+
     act = timing[ACT_SHAPE[0]]
     kernels = [{
         "name": "fused_mlp",
@@ -2357,6 +2884,7 @@ def main() -> int:
             "dqn family (1024 envs)": family,
             "packed runner (one call)": packed["counts"],
             "prioritized runner (one call)": prioritized["counts"],
+            "masked headline runner (one call)": masked["counts"],
         },
         "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],
         "learn_shape": timing[LEARN_SHAPE[0]],

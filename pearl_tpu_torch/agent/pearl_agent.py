@@ -58,6 +58,11 @@ class PearlAgent:
         default_factory=lambda: BasicReplayBuffer(capacity=10_000)
     )
     safety_module: SafetyModule = dataclasses.field(default_factory=IdentitySafetyModule)
+    # Store the (B, A) availability masks before and after each step in
+    # replay (dynamic action spaces), and the env's per-step cost (the
+    # reward-constrained safety module learns from it).
+    track_available_masks: bool = False
+    store_cost: bool = False
 
     def __post_init__(self):
         """Safety-module injection, as in the reference: a distributional
@@ -180,16 +185,21 @@ class PearlAgent:
         device = resolve_device(device)
         learner = self.policy_learner
         space = learner.action_space
-        _, rep_dim, _ = self._rep_dims(observation_dim)
+        _, rep_dim, num_actions = self._rep_dims(observation_dim)
         gen = torch.Generator().manual_seed(int(seed))
         learner_state = learner.init(gen, observation_dim, space, num_envs, device)
-        safety_state = self.safety_module.init(gen, observation_dim, space, num_envs)
+        safety_state = self.safety_module.init(gen, observation_dim, space, num_envs, device)
 
         stored_dim = self._summ.stored_dim(observation_dim, rep_dim)
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
+        masks = (
+            zeros(1, num_actions, dtype=torch.bool)
+            if self.track_available_masks and num_actions
+            else None
+        )
         example = TransitionBatch(
             state=zeros(1, stored_dim),
             action=zeros(1, space.action_dim),
@@ -198,6 +208,9 @@ class PearlAgent:
             terminated=zeros(1, dtype=torch.bool),
             truncated=zeros(1, dtype=torch.bool),
             action_index=zeros(1, dtype=torch.int32),
+            curr_available_mask=masks,
+            next_available_mask=masks,
+            cost=zeros(1) if self.store_cost else None,
             **self._extra_example_fields(space, device),
         )
         return AgentState(
@@ -216,7 +229,10 @@ class PearlAgent:
         return extra(space, device) if extra is not None else {}
 
     # ------------------------------------------------------------------- act
+    @torch.no_grad()
     def subjective_state(self, astate: AgentState) -> torch.Tensor:
+        """The summary the policy acts on. Acting trains nothing, so a learned
+        summarizer's forward records no graph."""
         stored = self._summ.stored(astate.history_carry)
         return self._summ.forward(astate.learner.summarizer_params, stored)
 
@@ -282,6 +298,7 @@ class PearlAgent:
             terminated=result.terminated,
             truncated=result.truncated,
             action_index=astate.last_action.index,
+            **self._stored_columns(astate, result),
         )
         replay_state = self.replay_buffer.push_frames(
             astate.replay, frame_s, result.observation, rest
@@ -293,6 +310,17 @@ class PearlAgent:
             available_mask=self._next_mask(astate, result),
             replay=replay_state,
         )
+
+    def _stored_columns(self, astate: AgentState, result: ActionResult) -> dict:
+        """The optional replay columns of a step: the availability masks at
+        act time and after the step, and the step's cost."""
+        columns = {}
+        if self.track_available_masks:
+            columns["curr_available_mask"] = astate.available_mask
+            columns["next_available_mask"] = result.available_actions_mask
+        if self.store_cost:
+            columns["cost"] = result.cost
+        return columns
 
     @staticmethod
     def _next_mask(astate: AgentState, result: ActionResult) -> Optional[torch.Tensor]:
@@ -336,6 +364,7 @@ class PearlAgent:
             terminated=result.terminated,
             truncated=result.truncated,
             action_index=astate.last_action.index,
+            **self._stored_columns(astate, result),
         )
 
         # Asynchronous per-env episode resets: zero the window and seed it
@@ -361,10 +390,24 @@ class PearlAgent:
         indices: Optional[torch.Tensor] = None,
     ) -> Tuple[AgentState, dict]:
         """`training_rounds` learn steps from replay; `indices`
-        (training_rounds, batch_size) replaces the sampled rows."""
+        (training_rounds, batch_size) replaces the sampled rows. A safety
+        module with a `batch_transform` (reward shaping) hands it to the
+        learner, and one with `learn` then updates from replay under the
+        learner's new state."""
+        safety = self.safety_module
+        transform = getattr(safety, "batch_transform", None)
+        extra = {} if transform is None else {"batch_transform": transform(astate.safety)}
         learner_state, replay_state, metrics = self.policy_learner.learn(
-            astate.learner, self.replay_buffer, astate.replay, generator, indices=indices
+            astate.learner, self.replay_buffer, astate.replay, generator, indices=indices,
+            **extra,
         )
+        safety_state = astate.safety
+        if hasattr(safety, "learn"):
+            safety_state, s_metrics = safety.learn(
+                safety_state, self.replay_buffer, astate.replay, generator,
+                self.policy_learner, learner_state,
+            )
+            metrics = {**metrics, **s_metrics}
         if self.policy_learner.on_policy:
             replay_state = self.replay_buffer.clear(replay_state)
         net = self._cache_net
@@ -372,11 +415,17 @@ class PearlAgent:
             # conv1's weights just moved: recompute every cached contribution
             # (in place) so the act path stays exact.
             net.refresh_cache(learner_state.params, astate.history_carry)
-        return dataclasses.replace(astate, learner=learner_state, replay=replay_state), metrics
+        return dataclasses.replace(
+            astate, learner=learner_state, safety=safety_state, replay=replay_state
+        ), metrics
 
     def learn_batch(self, astate: AgentState, batch: TransitionBatch):
-        """Offline path: the learner's `preprocess_batch`, its update, then the
-        safety update on the batch as given."""
+        """Offline path: the safety module's `batch_transform` (if any), the
+        learner's `preprocess_batch` and update, then the safety update on the
+        transformed batch, in the reference's order."""
+        transform = getattr(self.safety_module, "batch_transform", None)
+        if transform is not None:
+            batch = transform(astate.safety)(batch)
         learner_batch = self.policy_learner.preprocess_batch(astate.learner, batch)
         learner_state, metrics = self.policy_learner.learn_batch(astate.learner, learner_batch)
         safety_state, s_metrics = self.safety_module.learn_batch(

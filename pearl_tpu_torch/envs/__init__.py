@@ -7,14 +7,26 @@ from pearl_tpu_torch.envs.sparse_reward import (
 )
 from pearl_tpu_torch.envs.synthetic_visual import SyntheticAtari, SyntheticAtariState
 from pearl_tpu_torch.envs.vector import VectorEnv
+from pearl_tpu_torch.envs.wrappers import (
+    DynamicActionSpaceWrapper,
+    EnvWrapper,
+    PartialObservabilityWrapper,
+    SafetyWrapper,
+    SafetyWrapperState,
+)
 
 __all__ = [
     "CartPole",
     "CartPoleState",
     "ContinuousSparseRewardEnvironment",
     "DiscreteSparseRewardEnvironment",
+    "DynamicActionSpaceWrapper",
+    "EnvWrapper",
     "Pendulum",
+    "PartialObservabilityWrapper",
     "PendulumState",
+    "SafetyWrapper",
+    "SafetyWrapperState",
     "SparseRewardState",
     "SyntheticAtari",
     "SyntheticAtariState",

@@ -5,6 +5,9 @@ from pearl_tpu_torch.history_summarization_modules.frame_ring import (
 from pearl_tpu_torch.history_summarization_modules.modules import (
     HistorySummarizationModule,
     IdentityHistorySummarization,
+    LSTMHistorySummarization,
+    StackingHistorySummarization,
+    TransformerHistorySummarization,
 )
 
 __all__ = [
@@ -12,4 +15,7 @@ __all__ = [
     "FrameRingView",
     "HistorySummarizationModule",
     "IdentityHistorySummarization",
+    "LSTMHistorySummarization",
+    "StackingHistorySummarization",
+    "TransformerHistorySummarization",
 ]

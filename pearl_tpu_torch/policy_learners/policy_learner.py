@@ -6,7 +6,8 @@ representation module and history summarization module. Contract:
     init(generator, observation_dim, action_space, num_envs, device) -> state
     act(state, subjective_state, mask, generator, exploit) -> (state', ActionChoice)
     learn_batch(state, batch) -> (state', metrics)
-    learn(state, buffer, buffer_state, generator) -> (state', buffer_state', metrics)
+    learn(state, buffer, buffer_state, generator, indices=None, batch_transform=None)
+        -> (state', buffer_state', metrics)
     episode_reset(state, done_mask, generator) -> state'
 
 `generator` in `init` is a CPU generator for the weight init; the others
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -135,9 +136,12 @@ class PolicyLearner(abc.ABC):
         buffer_state,
         generator: Optional[torch.Generator],
         indices: Optional[torch.Tensor] = None,
+        batch_transform: Optional[Callable[[TransitionBatch], TransitionBatch]] = None,
     ):
-        """training_rounds x (sample -> preprocess_batch -> learn_batch). `indices`
-        (training_rounds, batch_size) replaces the sampled indices. A buffer
+        """training_rounds x (sample -> batch_transform -> preprocess_batch ->
+        learn_batch). `indices` (training_rounds, batch_size) replaces the
+        sampled indices. `batch_transform` is the safety module's hook (the
+        reward-constrained module's reward - lambda * cost). A buffer
         with `update_priorities` (prioritized replay) gets each round's
         per-sample |TD| written back at that round's indices when the learner
         reports `per_sample_td`. Metrics are averaged over rounds and stay on
@@ -152,6 +156,8 @@ class PolicyLearner(abc.ABC):
                 )
             else:
                 batch = buffer.sample(buffer_state, generator, self.batch_size, indices=idx)
+            if batch_transform is not None:
+                batch = batch_transform(batch)
             batch = self.preprocess_batch(state, batch)
             state, metrics = self.learn_batch(state, batch)
             if prioritized and "per_sample_td" in metrics:

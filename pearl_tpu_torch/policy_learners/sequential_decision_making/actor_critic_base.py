@@ -218,7 +218,9 @@ class ActorCriticBase(PolicyLearner):
             low, high = action_space.low.to(device), action_space.high.to(device)
         else:
             elements, reps = self.action_tensors(device)
-        summ_params = self.history_summarizer.init_params(generator, observation_dim, rep_dim)
+        summ_params = self.history_summarizer.init_params(
+            generator, observation_dim, rep_dim, device
+        )
         summ = _parameters(summ_params)
         act_actor = None
         if self.act_dtype is not None:

@@ -7,6 +7,8 @@ Semantics kept from the reference:
   - Q(s, a_taken))` when `is_conservative`.
 - AdamW (lr 1e-3, weight decay 0.01, b1 0.9, b2 0.999, eps 1e-8 outside the
   square root): torch's AdamW is the same decoupled update as optax.adamw.
+  It steps the Q-network and a learned history summarizer together; the
+  target copy is the Q-network's only.
 - Target network soft-updated every `target_update_freq` learn steps, counted
   on the post-increment step, with `soft_update_tau`.
 - The reported "loss" is the mean |TD error|, not the optimized MSE.
@@ -92,9 +94,15 @@ class DeepTDLearning(PolicyLearner):
 
     state_type: ClassVar[type] = DeepTDState
 
-    def optimizer(self, params: nn.Module) -> torch.optim.Optimizer:
+    def optimizer(self, params: nn.Module, summarizer_params: Any = None) -> torch.optim.Optimizer:
+        """One AdamW over the Q-network's and the summarizer's parameters, as
+        optax's over the reference's {"q", "summ"} tree (AdamW is elementwise,
+        so one optimizer over both is the same update)."""
+        trainable = list(params.parameters())
+        if isinstance(summarizer_params, nn.Module):
+            trainable += list(summarizer_params.parameters())
         return torch.optim.AdamW(
-            params.parameters(),
+            trainable,
             lr=self.learning_rate,
             betas=(0.9, 0.999),
             eps=1e-8,
@@ -117,7 +125,9 @@ class DeepTDLearning(PolicyLearner):
         act_params = None
         if self.act_dtype is not None:
             act_params = copy.deepcopy(params).requires_grad_(False).to(self._act_dtype())
-        summ_params = self.history_summarizer.init_params(generator, observation_dim, rep_dim)
+        summ_params = self.history_summarizer.init_params(
+            generator, observation_dim, rep_dim, device
+        )
         elements, reps = self.action_tensors(device)
         tie_generator = None
         if self.breaks_ties:
@@ -127,7 +137,7 @@ class DeepTDLearning(PolicyLearner):
             params=params,
             target_params=target,
             summarizer_params=summ_params,
-            optimizer=self.optimizer(params),
+            optimizer=self.optimizer(params, summ_params),
             explore_state=self._exploration().init(num_envs, device),
             step=0,
             action_elements=elements,

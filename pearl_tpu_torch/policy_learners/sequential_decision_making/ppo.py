@@ -81,15 +81,19 @@ def on_policy_step(state: ActorCriticState, a_loss, c_loss):
     return dataclasses.replace(state, step=state.step + 1), metrics
 
 
-def flat_rollout(buffer, buffer_state):
+def flat_rollout(buffer, buffer_state, batch_transform=None):
     """The rollout as (T, B) views, and its stored states, next states,
-    action indices and masks flattened to T * B rows."""
+    action indices and masks flattened to T * B rows. `batch_transform` (the
+    safety module's reward shaping) applies to the (T, B) trajectory, before
+    any return is computed from it."""
     if not isinstance(buffer, OnPolicyReplayBuffer):
         raise TypeError(
             "on-policy learners need an OnPolicyReplayBuffer sized rollout_steps * num_envs, "
             f"got {type(buffer).__name__}"
         )
     traj = buffer.trajectory_view(buffer_state)
+    if batch_transform is not None:
+        traj = batch_transform(traj)
     T, B = traj.reward.shape
     mask = traj.curr_available_mask
     flat = {
@@ -121,9 +125,9 @@ class ProximalPolicyOptimization(ActorCriticBase):
 
     def learn(
         self, state, buffer, buffer_state, generator: Optional[torch.Generator],
-        indices: Optional[torch.Tensor] = None,
+        indices: Optional[torch.Tensor] = None, batch_transform=None,
     ):
-        traj, flat = flat_rollout(buffer, buffer_state)
+        traj, flat = flat_rollout(buffer, buffer_state, batch_transform)
         T, B = traj.reward.shape
         summ = self.history_summarizer
         with torch.no_grad():

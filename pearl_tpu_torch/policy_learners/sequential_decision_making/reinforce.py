@@ -63,11 +63,11 @@ class REINFORCE(ActorCriticBase):
 
     def learn(
         self, state, buffer, buffer_state, generator: Optional[torch.Generator],
-        indices: Optional[torch.Tensor] = None,
+        indices: Optional[torch.Tensor] = None, batch_transform=None,
     ):
         if indices is not None:
             raise ValueError("REINFORCE learns from the whole rollout; it takes no indices")
-        traj, flat = flat_rollout(buffer, buffer_state)
+        traj, flat = flat_rollout(buffer, buffer_state, batch_transform)
         T, B = traj.reward.shape
         summ = self.history_summarizer
         critic = self.critic_network

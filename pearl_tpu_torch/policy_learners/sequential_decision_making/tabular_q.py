@@ -102,13 +102,17 @@ class TabularQLearning(PolicyLearner):
         q.index_put_((s, a), self.learning_rate * td, accumulate=True)
         return state, {"loss": td.abs().mean()}
 
-    def learn(self, state, buffer, buffer_state, generator, indices=None):
-        """One update over the whole storage, rows beyond `size` weighted 0."""
+    def learn(self, state, buffer, buffer_state, generator, indices=None, batch_transform=None):
+        """One update over the whole storage, rows beyond `size` weighted 0;
+        `batch_transform` (the safety module's hook) applies after the
+        weighting, as in the reference."""
         batch = buffer_state.storage
         n = batch.batch_size
         valid = (torch.arange(n, device=batch.reward.device) < buffer_state.size).to(torch.float32)
         weight = batch.weight if batch.weight is not None else torch.ones_like(valid)
         batch = dataclasses.replace(batch, weight=weight * valid)
+        if batch_transform is not None:
+            batch = batch_transform(batch)
         state, metrics = self.learn_batch(state, batch)
         return state, buffer_state, metrics
 

@@ -1,4 +1,8 @@
 from pearl_tpu_torch.safety_modules.identity import IdentitySafetyModule, SafetyModule
+from pearl_tpu_torch.safety_modules.reward_constrained import (
+    RCSafetyModuleCostCriticContinuousAction,
+    RCSafetyState,
+)
 from pearl_tpu_torch.safety_modules.risk_sensitive import (
     QuantileNetworkMeanVarianceSafetyModule,
     RiskNeutralSafetyModule,
@@ -8,6 +12,8 @@ from pearl_tpu_torch.safety_modules.risk_sensitive import (
 __all__ = [
     "IdentitySafetyModule",
     "QuantileNetworkMeanVarianceSafetyModule",
+    "RCSafetyModuleCostCriticContinuousAction",
+    "RCSafetyState",
     "RiskNeutralSafetyModule",
     "RiskSensitiveSafetyModule",
     "SafetyModule",

@@ -1,10 +1,15 @@
 """Safety module base + identity (port of `pearl_tpu/safety_modules/identity.py`).
 
 Protocol:
-    init(generator, observation_dim, action_space, num_envs) -> SafetyState
+    init(generator, observation_dim, action_space, num_envs, device) -> SafetyState
     filter_action(state, subjective_state, mask) -> mask'       (act-time)
     learn_batch(state, batch, learner=, learner_state=)
         -> (state', metrics)                                    (train-time)
+
+A module that shapes rewards adds `batch_transform(state) -> fn(batch)`,
+which the agent hands to the learner, and `learn(state, buffer,
+buffer_state, generator, learner, learner_state)`, which the agent calls after
+the learner's (`reward_constrained.py`).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SafetyModule:
-    def init(self, generator, observation_dim: int, action_space, num_envs: int):
+    def init(self, generator, observation_dim: int, action_space, num_envs: int, device=None):
         return ()
 
     def filter_action(

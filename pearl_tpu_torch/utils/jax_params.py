@@ -38,6 +38,15 @@ The discrete actors and the value networks: `VanillaActorNetwork`,
 (`load_flax_discrete_actor_params`, `load_flax_value_params`);
 `CNNTwinCritic` has the CNN tree with a leading 2 on every leaf
 (`load_flax_cnn_twin_critic_params`).
+
+The learned history summarizers: the LSTM's tree is one flax `LSTMCell`
+per layer, `{"LSTMCell_k": {"ii", "if", "ig", "io": {kernel (in, H)},
+"hi", "hf", "hg", "ho": {kernel (H, H), bias (H,)}}}`, in torch's gate order
+(i, f, g, o) (`load_flax_lstm_params`); the transformer's `{"embed",
+"pos_embedding" (1, T, d) when learned, "ln1_i", "attn_i": {"query", "key",
+"value": {kernel (d, heads, d/heads), bias (heads, d/heads)}, "out": {kernel
+(heads, d/heads, d), bias (d,)}}, "ln2_i", "mlp1_i", "mlp2_i", "ln_f"}`
+(`load_flax_transformer_params`).
 """
 
 from __future__ import annotations
@@ -324,3 +333,75 @@ def frame_ring_view_from_numpy(
         if view.cache is not None:
             view.cache = view.cache.to(dtype)
     return view
+
+
+_GATES = ("i", "f", "g", "o")  # flax's LSTMCell and torch's LSTM agree
+
+
+@torch.no_grad()
+def load_flax_lstm_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load an LSTM summarizer's flax params into the port's `LSTMNet`:
+    `weight_ih_lk` is the four input kernels side by side, transposed;
+    `weight_hh_lk` and `bias_hh_lk` the recurrent kernels and biases;
+    `bias_ih_lk` stays zero. Returns `net`, its weights re-flattened for
+    cuDNN."""
+    _check_keys(params, [f"LSTMCell_{k}" for k in range(net.num_layers)])
+    for k in range(net.num_layers):
+        cell = params[f"LSTMCell_{k}"]
+        _check_keys(cell, [p + g for p in "ih" for g in _GATES])
+        pairs = (
+            (net.weight_ih(k), torch.cat([_np(cell["i" + g]["kernel"]).T for g in _GATES])),
+            (net.weight_hh(k), torch.cat([_np(cell["h" + g]["kernel"]).T for g in _GATES])),
+            (net.bias_hh(k), torch.cat([_np(cell["h" + g]["bias"]) for g in _GATES])),
+        )
+        for target, value in pairs:
+            if value.shape != target.shape:
+                raise ValueError(
+                    f"LSTMCell_{k}: flax {tuple(value.shape)} != port {tuple(target.shape)}"
+                )
+            target.copy_(value)
+        net.bias_ih(k).zero_()
+    net.lstm.flatten_parameters()
+    return net
+
+
+@torch.no_grad()
+def _load_flax_layer_norm(ln: nn.Module, params: Mapping, name: str) -> None:
+    _check_keys(params, ("scale", "bias"))
+    for leaf in ("scale", "bias"):
+        value = _np(params[leaf])
+        if value.shape != getattr(ln, leaf).shape:
+            raise ValueError(f"{name}.{leaf}: flax {tuple(value.shape)} does not fit")
+        getattr(ln, leaf).copy_(value)
+
+
+@torch.no_grad()
+def load_flax_transformer_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a transformer summarizer's flax params into the port's
+    `TransformerNet`; returns `net`."""
+    learned = hasattr(net, "pos_embedding")
+    names = ["embed", "ln_f"] + (["pos_embedding"] if learned else [])
+    for i in range(net.num_layers):
+        names += [f"ln1_{i}", f"attn_{i}", f"ln2_{i}", f"mlp1_{i}", f"mlp2_{i}"]
+    _check_keys(params, names)
+    load_flax_dense(net.embed, params["embed"], "embed")
+    if learned:
+        net.pos_embedding.copy_(_np(params["pos_embedding"]))
+    _load_flax_layer_norm(net.ln_f, params["ln_f"], "ln_f")
+    for i in range(net.num_layers):
+        for ln in (f"ln1_{i}", f"ln2_{i}"):
+            _load_flax_layer_norm(getattr(net, ln), params[ln], ln)
+        for mlp in (f"mlp1_{i}", f"mlp2_{i}"):
+            load_flax_dense(getattr(net, mlp), params[mlp], mlp)
+        attn, flax_attn = getattr(net, f"attn_{i}"), params[f"attn_{i}"]
+        _check_keys(flax_attn, ("query", "key", "value", "out"))
+        for proj in ("query", "key", "value", "out"):
+            kernel = np.asarray(flax_attn[proj]["kernel"])
+            d = kernel.shape[-1] if proj == "out" else kernel.shape[0]
+            load_flax_dense(
+                getattr(attn, proj),
+                {"kernel": kernel.reshape(-1, d) if proj == "out" else kernel.reshape(d, -1),
+                 "bias": np.asarray(flax_attn[proj]["bias"]).reshape(-1)},
+                f"attn_{i}.{proj}",
+            )
+    return net

@@ -1,7 +1,9 @@
 """`FrameRingHistorySummarization` of the PyTorch port
 (pearl_tpu_torch/history_summarization_modules/frame_ring.py) against the
-JAX module (pearl_tpu/history_summarization_modules/frame_ring.py) and
-against a numpy stacking oracle, over a scripted episode stream with resets:
+JAX module (pearl_tpu/history_summarization_modules/frame_ring.py), against
+a numpy stacking oracle and against the port's own
+`StackingHistorySummarization(include_action=False)` advanced as the agent
+advances it, over a scripted episode stream with resets:
 the same numpy-made observations and done masks go through both. Frames are
 only moved and masked, never computed on, so everything is compared exactly.
 The port writes its ring in place; the aliasing that follows is pinned here.
@@ -19,6 +21,7 @@ from pearl_tpu.history_summarization_modules.frame_ring import FrameRingView as 
 from pearl_tpu_torch.history_summarization_modules import (
     FrameRingHistorySummarization,
     FrameRingView,
+    StackingHistorySummarization,
 )
 from pearl_tpu_torch.utils.pytree import tree_select
 
@@ -83,6 +86,10 @@ def test_scripted_episode_matches_jax_and_the_stacking_oracle(tdtype, jdtype, T)
     tview = tsumm.observe(tsumm.init_carry(B, F, 0, CPU), torch.from_numpy(first), None)
     assert tview.ring.dtype == (tdtype or torch.float32)
     oracle = StackingOracle(B, T, F, _rounded(first, tdtype))
+    stacking = StackingHistorySummarization(history_length=T, include_action=False)
+    window = stacking.observe(
+        stacking.init_carry(B, F, 0, CPU), torch.from_numpy(_rounded(first, tdtype)), None
+    )
     _same_view(tview, jview)
     for step in range(steps):
         obs = rng.uniform(0, 255, (B, F)).astype(np.float32)
@@ -99,8 +106,17 @@ def test_scripted_episode_matches_jax_and_the_stacking_oracle(tdtype, jdtype, T)
             tview, torch.from_numpy(obs), torch.from_numpy(reset_obs), torch.from_numpy(done)
         )
         oracle.advance(_rounded(obs, tdtype), _rounded(reset_obs, tdtype), done)
+        # The agent's generic step: append, and where done restart the
+        # window from the reset observation.
+        after = stacking.observe(window, torch.from_numpy(_rounded(obs, tdtype)), None)
+        fresh = stacking.observe(
+            stacking.reset_envs(after, torch.from_numpy(done)),
+            torch.from_numpy(_rounded(reset_obs, tdtype)), None,
+        )
+        window = tree_select(torch.from_numpy(done), fresh, after)
         _same_view(tview, jview)
         np.testing.assert_array_equal(_np(tview.materialize()), oracle.window())
+        np.testing.assert_array_equal(_np(tview.materialize()), stacking.stored(window).numpy())
         np.testing.assert_array_equal(
             _np(tsumm.newest_frame(tview)), oracle.window()[:, -F:]
         )

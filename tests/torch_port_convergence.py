@@ -3,9 +3,13 @@ of tests/integration/test_convergence.py: CartPole 500 with the multi-head
 Q-network (:48-79, the learning phase of chip_smoke.py), with Dueling DQN,
 QR-DQN or deep SARSA (:86-110), or with discrete SAC, PPO or REINFORCE
 (:124-158), Pendulum -250 with continuous SAC, DDPG or TD3 (:62-71,
-:161-187), and HER on the sparse reach task (:193-219: the success share of
-the last 200 episodes, which the reference holds above 0.95). Not collected
-by pytest; run it:
+:161-187), HER on the sparse reach task (:193-219: the success share of
+the last 200 episodes, which the reference holds above 0.95), and DQN with an
+LSTM or a transformer summarizer on CartPole that shows positions only
+(tests/test_wrappers_and_history.py:106-134 and
+tests/test_risk_sensitive_and_transformer.py:139-170: the mean return of the
+last tenth of the episodes, which the reference holds above 100). Not
+collected by pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
@@ -13,6 +17,8 @@ by pytest; run it:
     python tests/torch_port_convergence.py --package torch --learner qrdqn
     python tests/torch_port_convergence.py --package torch --env pendulum --learner csac
     python tests/torch_port_convergence.py --package torch --env sparse_reach --learner her
+    python tests/torch_port_convergence.py --package torch --env partial_cartpole \
+        --learner lstm_dqn --seeds 7
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -68,6 +74,12 @@ PENDULUM_LEARNERS = {
 # task, 150000 env steps, no early stop.
 SPARSE_REACH = dict(length=50.0, num_actions=8, step_size=4.0, reward_distance=4.0, max_steps=40)
 SPARSE_LEARNERS = {"her": 150_000}
+# The history anchors: (summarizer arguments, replay capacity, env steps).
+PARTIAL_LEARNERS = {
+    "lstm_dqn": (dict(history_length=8, hidden_dim=64, num_layers=1), 50_000, 100_000),
+    "transformer_dqn": (dict(history_length=8, dim=64, num_layers=1, num_heads=4), 50_048,
+                        300_000),
+}
 LEARNER_NAMES = {
     "csac": "ContinuousSoftActorCritic", "ddpg": "DeepDeterministicPolicyGradient", "td3": "TD3",
     "sac": "SoftActorCritic", "ppo": "ProximalPolicyOptimization", "reinforce": "REINFORCE",
@@ -105,7 +117,7 @@ def _modules(package):
         exploration=mod("policy_learners.exploration_modules"),
         learners=mod("policy_learners.sequential_decision_making"),
         buffers=buffers, on_policy=on_policy, sarsa=sarsa, hindsight=hindsight, sparse=sparse,
-        training=mod("training"),
+        training=mod("training"), history=mod("history_summarization_modules"),
     )
 
 
@@ -155,6 +167,30 @@ def run(package, env_name, learner_name, seed, device):
             num_envs=num_envs, max_steps=SPARSE_LEARNERS[learner_name], learn_every_k_steps=2,
             learning_starts=1_000, seed=seed, **extra,
         )
+    if env_name == "partial_cartpole":
+        summ_kwargs, capacity, budget = PARTIAL_LEARNERS[learner_name]
+        summ_cls = (
+            m["history"].LSTMHistorySummarization
+            if learner_name == "lstm_dqn"
+            else m["history"].TransformerHistorySummarization
+        )
+        agent = m["agent"].PearlAgent(
+            policy_learner=m["learners"].DeepQLearning(
+                training_rounds=2, batch_size=128,
+                exploration=m["exploration"].EGreedyExploration(
+                    start_epsilon=0.5, end_epsilon=0.05, warmup_steps=20_000
+                ),
+                history_summarizer=summ_cls(**summ_kwargs),
+            ),
+            replay_buffer=m["buffers"].BasicReplayBuffer(capacity=capacity),
+        )
+        env = m["envs"].PartialObservabilityWrapper(
+            env=m["envs"].CartPole(), observed_indices=(0, 2)
+        )
+        return m["training"].online_learning(
+            agent, env, num_envs=32, max_steps=budget, learn_every_k_steps=4,
+            learning_starts=2_000, seed=seed, **extra,
+        )
     kwargs, budget = PENDULUM_LEARNERS[learner_name]
     learner = getattr(m["learners"], LEARNER_NAMES[learner_name])(**kwargs)
     agent = m["agent"].PearlAgent(
@@ -168,18 +204,19 @@ def run(package, env_name, learner_name, seed, device):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
-    parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach"),
-                        default="cartpole")
+    parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach",
+                                          "partial_cartpole"), default="cartpole")
     parser.add_argument("--learner", choices=tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
-                        + tuple(SPARSE_LEARNERS),
+                        + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS),
                         help="dqn, dueling, qrdqn, sarsa, sac, ppo or reinforce on CartPole "
                         "(default dqn); csac, "
-                        "ddpg or td3 on Pendulum (default csac); her on sparse_reach")
+                        "ddpg or td3 on Pendulum (default csac); her on sparse_reach; "
+                        "lstm_dqn or transformer_dqn on partial_cartpole")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
     learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
-                "sparse_reach": SPARSE_LEARNERS}[args.env]
+                "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS}[args.env]
     if args.learner is None:
         args.learner = next(iter(learners))
     if args.learner not in learners:
@@ -194,6 +231,14 @@ def main():
             success = np.asarray(res.episode_returns) > -40.0 + 0.5
             extra = {"success_last_200": float(success[-200:].mean()),
                      "success_first_200": float(success[:200].mean())}
+        if args.env == "partial_cartpole":
+            # The mean return of the last and the first tenth of the episodes
+            # (at least 20), as the reference's tests take it.
+            r = np.asarray(res.episode_returns)
+            n = max(len(r) // 10, 20)
+            extra = {"mean_last_tenth": float(r[-n:].mean()),
+                     "mean_first_tenth": float(r[:n].mean()),
+                     "anchor_met": bool(r[-n:].mean() > 100.0)}
         print(json.dumps({
             "package": args.package, "env": args.env,
             "learner": args.learner, "seed": seed,
