@@ -101,11 +101,22 @@ Phases, each printing its seconds:
  27. masked headline runner: the headline runner on the dynamic action
      space with the availability masks in replay, beside the plain one,
      interleaved, B1 at 512 + 128 launches a call on both.
+ 28. offline iql anchor: the reference's offline IQL pipeline
+     (test_convergence.py:222-263) from phase 9's CSAC agent: 50000
+     transitions collected, IQL on 5000 batches of 256, a greedy evaluation
+     over 40000 env steps whose mean return must be above -600; the device
+     kernels of a learn_batch and a chunk of learning under the sync check;
+ 29. offline cql: 16384 greedy transitions from phase 5's multi-head DQN,
+     conservative DQN with `MultiHeadQValueNetwork` on 1000 batches of 128,
+     evaluated greedily: B1 launches in the learn and in the evaluation;
+ 30. discrete iql: the registry's DiscreteIQL row on CartPole at 1024 envs
+     through the runner; the value net moves in every learn, a call and a
+     learn make no host sync.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
- 13-15, 17-18 and 27 reach B1 as the runner does, 16 through its
- multi-head DQNs; 19-21 and 23-26 run plain PyTorch products and cuDNN's
- LSTM (the reference's are flax stacks that XLA computes); 22's control
- runner reaches B7, B3 and B6b as phase 6 does.
+ 13-15, 17-18, 27 and 29 reach B1 as the runner does, 16 through its
+ multi-head DQNs; 19-21, 23-26, 28 and 30 run plain PyTorch products and
+ cuDNN's LSTM (the reference's are flax stacks that XLA computes); 22's
+ control runner reaches B7, B3 and B6b as phase 6 does.
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -363,23 +374,32 @@ def profile_call(run_fn, astate, env_states, gen, wall_s):
     return profile_fn(lambda: run_fn(astate, env_states, gen), wall_s)
 
 
-def profile_fn(fn, wall_s, unit="runner call"):
-    """Device time of one `fn()` by kernel, set against `wall_s`, the
-    unprofiled wall time of one `fn()`: the card's idle share."""
+def device_events(fn):
+    """(name, µs) of each kernel and copy the card ran for `fn()`, from
+    torch.profiler's device activity. User annotations (Optimizer.step, ...)
+    span kernels already counted and are left out. The raw Kineto events
+    give the counts and busy time of `prof.events()` at a twentieth of its
+    host time (0.5 s against 9.4-19.0 s for the 49866 events of one headline
+    runner call on an H100), and device activity alone is traced as
+    completely as with host activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return [(evt.name(), evt.duration_ns() / 1e3) for evt in prof.profiler.kineto_results.events()
+            if evt.device_type() == DeviceType.CUDA and not evt.is_user_annotation()]
+
+
+def profile_fn(fn, wall_s, unit="runner call"):
+    """Device time of one `fn()` by kernel, set against `wall_s`, the
+    unprofiled wall time of one `fn()`: the card's idle share."""
     by_name = {}
-    n_device = 0
-    for evt in prof.events():
-        # Kernels and copies only: user annotations (Optimizer.step, ...)
-        # span kernels already counted.
-        if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
-            n_device += 1
+    events = device_events(fn)
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    n_device = len(events)
     busy_s = sum(by_name.values()) / 1e6
     if busy_s == 0:
         print("profile: the profiler saw no device time (idle share not measured)")
@@ -401,17 +421,13 @@ def profile_fn(fn, wall_s, unit="runner call"):
 
 def device_kernels(fn):
     """Kernels and copies the card ran for `fn()`, counted by torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for evt in prof.events()
-               if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation)
+    return len(device_events(fn))
 
 
 def run_learning(card):
+    """The multi-head DQN must reach CartPole 500 (test_convergence.py:48-79).
+    Returns the agent and its learner state: the offline cql phase's
+    behaviour agent."""
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import CartPole
     from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
@@ -442,6 +458,7 @@ def run_learning(card):
     )
     assert res.reached_target, "online_learning did not reach CartPole return 500"
     assert fused_mlp.launches > 0
+    return agent, res.agent_state.learner
 
 
 # The visual workload's shapes: 1024 envs, a window of 4 frames of 84 x 84.
@@ -1230,7 +1247,8 @@ def run_ddpg_td3_runners(card):
 def run_continuous_learning(card):
     """Continuous SAC must reach Pendulum -250 (test_convergence.py:62-71,
     161-167: 16 envs, one learn per step after 1000, 2 rounds of 100, seed
-    42, within 300000 env steps)."""
+    42, within 300000 env steps). Returns the agent and its learner state:
+    the offline IQL anchor's behaviour agent."""
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import Pendulum
     from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
@@ -1254,7 +1272,7 @@ def run_continuous_learning(card):
           f"steps in {seconds:.1f} s, {len(res.episode_returns)} episodes, last-20 mean return "
           f"{last:.1f} on {card}", flush=True)
     assert res.reached_target, "online_learning did not reach Pendulum -250 with continuous SAC"
-    return res.total_steps, seconds
+    return agent, res.agent_state.learner
 
 
 # Shorter windows for the replay-variant, history, safety and masked
@@ -2679,6 +2697,194 @@ def run_masked_headline(card):
     return {"rates": rates, "ratio": ratio, "counts": counts["masked"], "profiles": profiles}
 
 
+def kernels_per_call(fn, short=4, long=20):
+    """The device kernels of one `fn()`: the difference of two profiled
+    windows of `short` and `long` calls over their difference."""
+    def calls(n):
+        for _ in range(n):
+            fn()
+
+    counts = [device_kernels(lambda: calls(n)) for n in (short, long)]
+    return (counts[1] - counts[0]) / (long - short)
+
+
+def offline_stages(agent, env, batch, learn, eval_steps, name):
+    """The offline path after collection: `batch` into a replay of its size,
+    `offline_learning` with `learn`'s arguments and a logger (one host copy
+    a chunk), the learner's step, finite chunk means, then
+    `offline_evaluation` over `eval_steps` env steps at 16 envs. B1's
+    launches are counted from 0 in each of the two stages. Returns a dict:
+    the bound agent, its state, the buffer and its state, the evaluation
+    returns, the seconds of each stage, the logged means and B1's counts."""
+    from pearl_tpu_torch.training import buffer_from_batch, offline_evaluation, offline_learning
+
+    buffer, buf_state = buffer_from_batch(batch)
+    bound = agent.for_env(env)
+    obs_dim = env.observation_dim
+    astate = bound.init(0, obs_dim, 1, torch.zeros(1, obs_dim, device=DEV))
+    logged = []
+    reset_fused_counts()
+    t0 = time.perf_counter()
+    astate = offline_learning(bound, astate, buffer, buf_state, seed=0,
+                              logger=lambda m, i: logged.append((i, m)), **learn)
+    torch.cuda.synchronize()
+    t_learn = time.perf_counter() - t0
+    n, every = learn["number_of_batches"], learn["log_every"]
+    assert astate.learner.step == n, (name, astate.learner.step)
+    assert [i for i, _ in logged] == list(range(every, n + 1, every)), logged
+    assert all(math.isfinite(float(v)) for _, m in logged for v in m.values()), logged
+    learn_counts = fused_counts()
+    reset_fused_counts()
+    t0 = time.perf_counter()
+    returns = offline_evaluation(bound, astate, env, num_envs=16, max_steps=eval_steps)
+    t_eval = time.perf_counter() - t0
+    assert len(returns) > 0 and np.isfinite(returns).all(), name
+    return {"agent": bound, "astate": astate, "buffer": buffer, "buf_state": buf_state,
+            "returns": returns, "learn_s": t_learn, "eval_s": t_eval, "logged": logged,
+            "b1": {"learn": learn_counts, "evaluation": fused_counts()}}
+
+
+def run_offline_iql(card, behaviour, learner_state):
+    """The reference's offline IQL anchor (test_convergence.py:222-263) from
+    the continuous learning phase's CSAC agent, which reached Pendulum -250:
+    50000 transitions collected from it at 16 envs without exploiting (seed
+    7), IQL on 5000 batches of 256 (chunks of 1000, seed 0), and a greedy
+    evaluation over 40000 env steps whose mean return must be above -600.
+    Then the device kernels of one learn_batch, and one more chunk of
+    `offline_learning` under the sync check. No kernel of the port: IQL's
+    networks are PyTorch products, as the reference's are flax stacks."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import Pendulum
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import ImplicitQLearning
+    from pearl_tpu_torch.training import collect_offline_data, offline_learning
+    from pearl_tpu_torch.utils import make_generator
+
+    env = Pendulum()
+    t0 = time.perf_counter()
+    batch = collect_offline_data(behaviour, env, num_transitions=50_000, num_envs=16,
+                                 learner_state=learner_state, exploit=False, seed=7)
+    torch.cuda.synchronize()
+    t_collect = time.perf_counter() - t0
+    assert batch.reward.shape == (50_000,) and torch.isfinite(batch.state).all()
+    out = offline_stages(PearlAgent(policy_learner=ImplicitQLearning()), env, batch,
+                         dict(number_of_batches=5_000, batch_size=256, log_every=1_000), 40_000,
+                         "iql")
+    bound, buffer, buf_state, returns = out["agent"], out["buffer"], out["buf_state"], out["returns"]
+    t_learn, t_eval, logged = out["learn_s"], out["eval_s"], out["logged"]
+    mean = float(np.mean(returns))
+    gen = make_generator(1, DEV)
+    batches = [buffer.sample(buf_state, gen, 256) for _ in range(20)]
+    box = {"astate": out["astate"], "i": 0}
+
+    def learn_batch():
+        box["astate"], _ = bound.learn_batch(box["astate"], batches[box["i"] % 20])
+        box["i"] += 1
+
+    per_learn = kernels_per_call(learn_batch)
+    astate = no_sync(lambda: offline_learning(bound, box["astate"], buffer, buf_state,
+                                              number_of_batches=100, batch_size=256, seed=1,
+                                              log_every=100))
+    last = logged[-1][1]
+    print(f"offline iql anchor: {batch.reward.shape[0]} transitions collected in "
+          f"{t_collect:.1f} s, {logged[-1][0]} learns of 256 in {t_learn:.1f} s ("
+          + ", ".join(f"{k}={float(v):.4f}" for k, v in last.items()) + " over the last "
+          f"chunk), evaluation over 40000 env steps in {t_eval:.1f} s: mean return {mean:.1f} "
+          f"over {len(returns)} episodes (above -600 required); {per_learn:.1f} device kernels "
+          f"per learn_batch; a chunk of 100 learns made no host sync (step "
+          f"{astate.learner.step}) on {card}", flush=True)
+    assert mean > -600.0, mean
+    return {"mean_return": mean, "collect_s": t_collect, "learn_s": t_learn, "eval_s": t_eval,
+            "kernels_per_learn_batch": per_learn}
+
+
+# The offline cql phase's evaluation mean at the same setting on the CPU,
+# seed 42 for the behaviour agent (python tests/torch_port_convergence.py
+# --package {jax,torch} --env offline --learner offline_cql).
+OFFLINE_CQL_CPU = {"jax": 470.2, "torch": 294.4}
+
+
+def run_offline_cql(card, behaviour, learner_state):
+    """Offline CQL through B1: 16384 greedy transitions from the learning
+    phase's multi-head DQN (CartPole 500), then DQN with
+    `MultiHeadQValueNetwork`, `is_conservative=True`, alpha 1 and batches of
+    128 on 1000 batches, and a greedy evaluation over 16384 env steps. B1
+    must launch in both, counted from 0 before each: two a learn (the
+    online and the target Q), one an evaluation step. No gate on the return:
+    the reference has no anchor for it; its CPU value in both packages is
+    printed beside it."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.training import collect_offline_data
+
+    env = CartPole()
+    t0 = time.perf_counter()
+    batch = collect_offline_data(behaviour, env, num_transitions=16_384, num_envs=16,
+                                 learner_state=learner_state, exploit=True, seed=7)
+    torch.cuda.synchronize()
+    t_collect = time.perf_counter() - t0
+    assert batch.reward.shape == (16_384,) and torch.isfinite(batch.state).all()
+    agent = PearlAgent(policy_learner=DeepQLearning(
+        q_network=MultiHeadQValueNetwork(), is_conservative=True, conservative_alpha=1.0,
+        batch_size=128))
+    out = offline_stages(agent, env, batch, dict(number_of_batches=1_000, batch_size=128,
+                                                 log_every=100), 16_384, "offline cql")
+    b1, returns = out["b1"], out["returns"]
+    assert b1["learn"]["launches"] == 2 * 1_000 == b1["learn"]["by_body"]["rows"], b1
+    assert b1["evaluation"]["launches"] == 16_384 // 16 == b1["evaluation"]["by_body"]["rows"], b1
+    mean = float(np.mean(returns))
+    last = out["logged"][-1][1]
+    print(f"offline cql: 16384 greedy transitions collected in {t_collect:.1f} s, 1000 learns "
+          f"of 128 in {out['learn_s']:.1f} s (" + ", ".join(
+              f"{k}={float(v):.4f}" for k, v in last.items()) + " over the last chunk), "
+          f"evaluation over 16384 env steps in {out['eval_s']:.1f} s: mean return {mean:.1f} over "
+          f"{len(returns)} episodes (CPU, the same setting: JAX {OFFLINE_CQL_CPU['jax']}, port "
+          f"{OFFLINE_CQL_CPU['torch']}); fused_mlp launches {b1['learn']['launches']} in the "
+          f"learn, {b1['evaluation']['launches']} in the evaluation, all in the rows body on "
+          f"{card}", flush=True)
+    return {"learn": b1["learn"], "evaluation": b1["evaluation"], "mean_return": mean}
+
+
+def run_discrete_iql(card):
+    """The registry's DiscreteIQL row (configs.py:380-384: one round of 256,
+    a learn every 2 steps) on CartPole at 1024 envs (replay 65536 rows, the
+    registry's 50000 rounded up to a multiple of 1024), through the runner
+    as the history phases: a warm-up call, two timed ones (the last under
+    the sync check), a profiled call and the device kernels of a step and of
+    a learn; then four learns one at a time, the first under the sync check,
+    each of which must move every tensor of the value net, with finite
+    losses."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import ImplicitQLearning
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+
+    env = CartPole()
+    agent = PearlAgent(policy_learner=ImplicitQLearning(training_rounds=1, batch_size=256),
+                       replay_buffer=BasicReplayBuffer(capacity=HIST_CAPACITY))
+    state, out = history_runner(agent, env, "discrete iql", card, spl=2, lpc=64)
+    astate, gen = state[1], state[3]
+    bound = agent.for_env(env)
+    learns = 4
+    for i in range(learns):
+        value = astate.learner.extra.value_params
+        before = [p.detach().clone() for p in value.parameters()]
+        if i == 0:
+            astate, metrics = no_sync(lambda: bound.learn(astate, gen))
+        else:
+            astate, metrics = bound.learn(astate, gen)
+        moved = [not torch.equal(a, b) for a, b in zip(value.parameters(), before)]
+        values = {k: v.item() for k, v in metrics.items()}
+        assert moved and all(moved), moved
+        assert set(values) == {"actor_loss", "critic_loss", "value_loss"}, values
+        assert all(math.isfinite(v) for v in values.values()), values
+    print(f"discrete iql: the value net's {len(moved)} tensors moved in each of {learns} learns "
+          "(the first under the sync check); " + ", ".join(
+              f"{k}={v:.6f}" for k, v in values.items()), flush=True)
+    return out
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -2746,7 +2952,7 @@ def main() -> int:
     phase("runner", t0)
 
     t0 = time.perf_counter()
-    run_learning(card)
+    dqn_behaviour = run_learning(card)
     phase("learning", t0)
 
     t0 = time.perf_counter()
@@ -2782,7 +2988,7 @@ def main() -> int:
     phase("ddpg and td3 runners", t0)
 
     t0 = time.perf_counter()
-    run_continuous_learning(card)
+    csac_behaviour = run_continuous_learning(card)
     phase("continuous learning", t0)
 
     t0 = time.perf_counter()
@@ -2860,6 +3066,18 @@ def main() -> int:
     masked = run_masked_headline(card)
     phase("masked headline runner", t0)
 
+    t0 = time.perf_counter()
+    run_offline_iql(card, *csac_behaviour)
+    phase("offline iql anchor", t0)
+
+    t0 = time.perf_counter()
+    offline_cql = run_offline_cql(card, *dqn_behaviour)
+    phase("offline cql", t0)
+
+    t0 = time.perf_counter()
+    run_discrete_iql(card)
+    phase("discrete iql", t0)
+
     act = timing[ACT_SHAPE[0]]
     kernels = [{
         "name": "fused_mlp",
@@ -2885,6 +3103,8 @@ def main() -> int:
             "packed runner (one call)": packed["counts"],
             "prioritized runner (one call)": prioritized["counts"],
             "masked headline runner (one call)": masked["counts"],
+            "offline cql learn (1000 batches)": offline_cql["learn"],
+            "offline cql evaluation (16384 env steps)": offline_cql["evaluation"],
         },
         "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],
         "learn_shape": timing[LEARN_SHAPE[0]],

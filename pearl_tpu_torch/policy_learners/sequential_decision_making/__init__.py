@@ -16,6 +16,11 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.deep_td import (
     DeepTDState,
     DoubleDQN,
 )
+from pearl_tpu_torch.policy_learners.sequential_decision_making.iql import (
+    ImplicitQLearning,
+    IQLExtra,
+    expectile_loss,
+)
 from pearl_tpu_torch.policy_learners.sequential_decision_making.ppo import (
     ProximalPolicyOptimization,
     gae_lambda_returns,
@@ -56,6 +61,8 @@ __all__ = [
     "DeepTDState",
     "DictTabularQLearning",
     "DoubleDQN",
+    "IQLExtra",
+    "ImplicitQLearning",
     "ProximalPolicyOptimization",
     "QuantileRegressionDeepQLearning",
     "REINFORCE",
@@ -65,6 +72,7 @@ __all__ = [
     "TabularQLearning",
     "TabularQState",
     "discounted_returns",
+    "expectile_loss",
     "gae_lambda_returns",
     "twin_q_all",
 ]

@@ -37,7 +37,8 @@ The discrete actors and the value networks: `VanillaActorNetwork`,
 {...}}`, `CNNActorNetwork` and `CNNValueNetwork` the CNN Q-network's tree
 (`load_flax_discrete_actor_params`, `load_flax_value_params`);
 `CNNTwinCritic` has the CNN tree with a leading 2 on every leaf
-(`load_flax_cnn_twin_critic_params`).
+(`load_flax_cnn_twin_critic_params`). `load_flax_iql_state` composes the
+actor, twin critic and value loaders over an IQL learner's state.
 
 The learned history summarizers: the LSTM's tree is one flax `LSTMCell`
 per layer, `{"LSTMCell_k": {"ii", "if", "ig", "io": {kernel (in, H)},
@@ -405,3 +406,22 @@ def load_flax_transformer_params(net: nn.Module, params: Mapping) -> nn.Module:
                 f"attn_{i}.{proj}",
             )
     return net
+
+
+def load_flax_iql_state(state, params: Mapping):
+    """Load an `ImplicitQLearning` state's weights, given as `{"actor_params",
+    "critic_params", "critic_target_params", "value_params"}` numpy trees of
+    the JAX learner's state (the value net's from `state.extra`), into the
+    port's `ActorCriticState` in place: the Gaussian actor (`{"MLP_0", "mu",
+    "log_std"}`) or a discrete one, the twin critic and its target, and the
+    value net. Returns `state`."""
+    _check_keys(params, ("actor_params", "critic_params", "critic_target_params", "value_params"))
+    actor = params["actor_params"]
+    if "mu" in actor:
+        load_flax_gaussian_actor_params(state.actor_params, actor)
+    else:
+        load_flax_discrete_actor_params(state.actor_params, actor)
+    load_flax_twin_critic_params(state.critic_params, params["critic_params"])
+    load_flax_twin_critic_params(state.critic_target_params, params["critic_target_params"])
+    load_flax_value_params(state.extra.value_params, params["value_params"])
+    return state

@@ -46,6 +46,13 @@ CONFIGS = {
         JaxDQN, DeepQLearning, JaxMultiHead, MultiHeadQValueNetwork,
         {"is_conservative": True},
     ),
+    # The learners of the Double DQN and online CQL anchors
+    # (test_convergence.py:82-83, 112-121): the default Q-network, alpha 1.
+    "double_vanilla": (JaxDoubleDQN, DoubleDQN, JaxVanilla, VanillaQValueNetwork, {}),
+    "cql_vanilla_alpha_1": (
+        JaxDQN, DeepQLearning, JaxVanilla, VanillaQValueNetwork,
+        {"is_conservative": True, "conservative_alpha": 1.0},
+    ),
 }
 
 

@@ -1,15 +1,17 @@
 """Env steps each package needs to reach its target with the configurations
 of tests/integration/test_convergence.py: CartPole 500 with the multi-head
-Q-network (:48-79, the learning phase of chip_smoke.py), with Dueling DQN,
-QR-DQN or deep SARSA (:86-110), or with discrete SAC, PPO or REINFORCE
+Q-network (:48-79, the learning phase of chip_smoke.py), with Double DQN,
+Dueling DQN, QR-DQN, deep SARSA or online CQL (:82-121), or with discrete
+SAC, PPO or REINFORCE
 (:124-158), Pendulum -250 with continuous SAC, DDPG or TD3 (:62-71,
 :161-187), HER on the sparse reach task (:193-219: the success share of
 the last 200 episodes, which the reference holds above 0.95), and DQN with an
 LSTM or a transformer summarizer on CartPole that shows positions only
 (tests/test_wrappers_and_history.py:106-134 and
 tests/test_risk_sensitive_and_transformer.py:139-170: the mean return of the
-last tenth of the episodes, which the reference holds above 100). Not
-collected by pytest; run it:
+last tenth of the episodes, which the reference holds above 100); and the
+offline pipelines (`--env offline`, see OFFLINE_LEARNERS). Not collected by
+pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
@@ -19,12 +21,16 @@ collected by pytest; run it:
     python tests/torch_port_convergence.py --package torch --env sparse_reach --learner her
     python tests/torch_port_convergence.py --package torch --env partial_cartpole \
         --learner lstm_dqn --seeds 7
+    python tests/torch_port_convergence.py --package torch --learner cql
+    python tests/torch_port_convergence.py --package torch --env offline --learner iql
+    python tests/torch_port_convergence.py --package torch --env rc_pendulum --seeds 0 1 2
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
 """
 
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -45,6 +51,9 @@ CARTPOLE_LEARNERS = {
     "dueling": (dict(training_rounds=4, batch_size=128), None, TD_DRIVER),
     "qrdqn": (dict(training_rounds=4, batch_size=128), None, TD_DRIVER),
     "sarsa": (dict(training_rounds=4, batch_size=128), "sarsa", TD_DRIVER),
+    "double": (dict(training_rounds=4, batch_size=128), None, TD_DRIVER),
+    "cql": (dict(is_conservative=True, conservative_alpha=1.0, training_rounds=4,
+                 batch_size=128), None, TD_DRIVER),
     "sac": (dict(training_rounds=2, batch_size=100, entropy_coef=0.01, entropy_autotune=False,
                  actor_learning_rate=1e-3, critic_learning_rate=1e-3),
             None, dict(num_envs=16, max_steps=500_000, learn_every_k_steps=2,
@@ -80,19 +89,33 @@ PARTIAL_LEARNERS = {
     "transformer_dqn": (dict(history_length=8, dim=64, num_layers=1, num_heads=4), 50_048,
                         300_000),
 }
+# The offline anchors: test_convergence.py:222-263 ("iql": a continuous SAC
+# behaviour agent trained to Pendulum -250, 50000 transitions collected from
+# it without exploiting, IQL on 5000 batches of 256, the mean return of a
+# greedy evaluation over 40000 env steps, which the reference holds above
+# -600) and "offline_cql", chip_smoke.py's CartPole twin (the "dqn" learner
+# above to CartPole 500, 16384 greedy transitions, CQL with the multi-head
+# Q-network on 1000 batches of 128, evaluated over 16384 env steps; no
+# reference anchor).
+OFFLINE_LEARNERS = ("iql", "offline_cql")
+# A diagnostic, not an anchor: RCCSAC (pearl_tpu/benchmarks/configs.py:
+# 401-408, 527-537: constraint 0.2) on Pendulum with its torque cost at 16
+# envs, a learn every step from the first, 1250 learns (chip_smoke.py's rc
+# phase); prints lambda and the left side of its update, the cost critic's
+# E[max(Q_c1, Q_c2)] * (1 - 0.5) at 4096 replay states under the policy's
+# actions, which must pass the constraint for lambda to leave 0.
+RC_LEARNERS = ("rccsac",)
 LEARNER_NAMES = {
     "csac": "ContinuousSoftActorCritic", "ddpg": "DeepDeterministicPolicyGradient", "td3": "TD3",
     "sac": "SoftActorCritic", "ppo": "ProximalPolicyOptimization", "reinforce": "REINFORCE",
     "dueling": "DeepQLearning", "qrdqn": "QuantileRegressionDeepQLearning",
-    "sarsa": "DeepSARSA",
+    "sarsa": "DeepSARSA", "double": "DoubleDQN", "cql": "DeepQLearning",
 }
-TD_LEARNERS = ("dueling", "qrdqn", "sarsa")
+TD_LEARNERS = ("dueling", "qrdqn", "sarsa", "double", "cql")
 
 
 def _modules(package):
     """The package's modules this script uses, by the same names."""
-    import importlib
-
     root = "pearl_tpu" if package == "jax" else "pearl_tpu_torch"
     mod = lambda name: importlib.import_module(f"{root}.{name}")  # noqa: E731
     if package == "jax":
@@ -118,7 +141,135 @@ def _modules(package):
         learners=mod("policy_learners.sequential_decision_making"),
         buffers=buffers, on_policy=on_policy, sarsa=sarsa, hindsight=hindsight, sparse=sparse,
         training=mod("training"), history=mod("history_summarization_modules"),
+        offline=mod("training.offline"), collect=mod("training.collect"),
+        offline_rl=mod("benchmarks.offline_rl" if package == "jax" else "benchmarks"),
     )
+
+
+def run_rc(package, seed, device):
+    """The RCCSAC diagnostic; returns lambda and the cost estimate."""
+    m = _modules(package)
+    safety = importlib.import_module(
+        ("pearl_tpu" if package == "jax" else "pearl_tpu_torch") + ".safety_modules"
+    )
+    extra = {} if package == "jax" else {"device": device}
+    agent = m["agent"].PearlAgent(
+        policy_learner=m["learners"].ContinuousSoftActorCritic(training_rounds=1, batch_size=256),
+        replay_buffer=m["buffers"].BasicReplayBuffer(capacity=50_000),
+        safety_module=safety.RCSafetyModuleCostCriticContinuousAction(
+            constraint_value=0.2, batch_size=256
+        ),
+        store_cost=True,
+    )
+    env = m["envs"].Pendulum(emit_torque_cost=True)
+    t0 = time.perf_counter()
+    res = m["training"].online_learning(
+        agent, env, num_envs=16, max_steps=16 * 1_250, learn_every_k_steps=1, learning_starts=0,
+        seed=seed, **extra,
+    )
+    seconds = time.perf_counter() - t0
+    bound = agent.for_env(env)
+    module, learner = bound.safety_module, bound.policy_learner
+    astate = res.agent_state
+    ls, ss = astate.learner, astate.safety
+    if package == "jax":
+        import jax
+        import jax.numpy as jnp
+
+        k_sample, k_act = jax.random.split(jax.random.PRNGKey(seed + 1))
+        batch = bound.replay_buffer.sample(astate.replay, k_sample, 4096)
+        subj = learner.history_summarizer.forward(ls.summarizer_params, batch.state)
+        action = module._policy_action(learner, ls, subj, k_act)
+        q1, q2 = module._critic().q_both(ss.critic_params, subj, action)
+        cost_q = float(jnp.mean(jnp.maximum(q1, q2)))
+        lam = float(ss.lagrangian)
+    else:
+        import torch
+
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        batch = bound.replay_buffer.sample(astate.replay, gen, 4096)
+        with torch.no_grad():
+            subj = learner.history_summarizer.forward(ls.summarizer_params, batch.state)
+            action = module._policy_action(learner, ls, subj, gen, None)
+            q1, q2 = module._critic().q_both(ss.critic_params, subj, action)
+        cost_q = float(torch.maximum(q1, q2).mean())
+        lam = float(ss.lagrangian)
+    costs = np.asarray(res.episode_costs)
+    return {
+        "learns": 1_250, "lambda": lam,
+        "cost_estimate_times_1_minus_gamma_c": cost_q * (1.0 - module.cost_discount_factor),
+        "constraint": module.constraint_value, "episodes": int(len(costs)),
+        "mean_episode_cost_last_16": float(costs[-16:].mean()) if len(costs) else None,
+        "seconds": round(seconds, 1),
+    }
+
+
+def run_offline(package, learner_name, seed, device):
+    """One offline anchor; returns its numbers. `seed` is the behaviour
+    agent's; collection, offline training and evaluation keep the
+    reference's seeds (7, 0 and 1)."""
+    m = _modules(package)
+    extra = {} if package == "jax" else {"device": device}
+    t0 = time.perf_counter()
+    if learner_name == "iql":
+        env = m["envs"].Pendulum()
+        kwargs, _ = PENDULUM_LEARNERS["csac"]
+        behaviour = m["agent"].PearlAgent(
+            policy_learner=m["learners"].ContinuousSoftActorCritic(**kwargs),
+            replay_buffer=m["buffers"].BasicReplayBuffer(capacity=100_000),
+        )
+        res = m["training"].online_learning(
+            behaviour, env, max_steps=100_000, seed=seed, **PENDULUM, **extra
+        )
+        collect = dict(num_transitions=50_000, exploit=False)
+        learner = m["learners"].ImplicitQLearning()
+        learn = dict(number_of_batches=5_000, batch_size=256, log_every=1_000)
+        eval_steps = 40_000
+    else:
+        env = m["envs"].CartPole()
+        res = run(package, "cartpole", "dqn", seed, device)
+        # The agent `run` trained, whose learner state `res` holds.
+        behaviour = m["agent"].PearlAgent(policy_learner=m["learners"].DeepQLearning(
+            q_network=m["q_networks"].MultiHeadQValueNetwork(), training_rounds=4,
+            batch_size=128, exploration=m["exploration"].EGreedyExploration(epsilon=0.05),
+        ))
+        collect = dict(num_transitions=16_384, exploit=True)
+        learner = m["learners"].DeepQLearning(
+            q_network=m["q_networks"].MultiHeadQValueNetwork(), is_conservative=True,
+            conservative_alpha=1.0, batch_size=128,
+        )
+        learn = dict(number_of_batches=1_000, batch_size=128, log_every=100)
+        eval_steps = 16_384
+    behaviour_steps, t_behaviour = res.total_steps, time.perf_counter() - t0
+    batch = m["collect"].collect_offline_data(
+        behaviour, env, num_envs=16, learner_state=res.agent_state.learner, seed=7, **collect,
+        **extra,
+    )
+    buffer, buf_state = m["offline_rl"].buffer_from_batch(batch)
+    agent = m["agent"].PearlAgent(policy_learner=learner).for_env(env)
+    obs_dim = env.observation_dim
+    if package == "jax":
+        import jax
+
+        astate = agent.init(jax.random.PRNGKey(0), obs_dim, 1, np.zeros((1, obs_dim), np.float32))
+    else:
+        import torch
+
+        astate = agent.init(0, obs_dim, 1, torch.zeros(1, obs_dim), device=device)
+    t1 = time.perf_counter()
+    astate = m["offline"].offline_learning(agent, astate, buffer, buf_state, seed=0, **learn)
+    t_learn = time.perf_counter() - t1
+    returns = m["offline"].offline_evaluation(
+        agent, astate, env, num_envs=16, max_steps=eval_steps, **extra
+    )
+    return {
+        "behaviour_reached_target": bool(res.reached_target),
+        "behaviour_env_steps": int(behaviour_steps), "behaviour_seconds": round(t_behaviour, 1),
+        "offline_learn_seconds": round(t_learn, 1), "eval_episodes": int(len(returns)),
+        "eval_mean_return": float(np.mean(returns)),
+        "anchor_met": bool(np.mean(returns) > -600.0) if learner_name == "iql" else None,
+        "seconds": round(time.perf_counter() - t0, 1),
+    }
 
 
 def run(package, env_name, learner_name, seed, device):
@@ -205,24 +356,36 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
     parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach",
-                                          "partial_cartpole"), default="cartpole")
+                                          "partial_cartpole", "offline", "rc_pendulum"),
+                        default="cartpole")
     parser.add_argument("--learner", choices=tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
-                        + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS),
-                        help="dqn, dueling, qrdqn, sarsa, sac, ppo or reinforce on CartPole "
-                        "(default dqn); csac, "
+                        + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS) + OFFLINE_LEARNERS
+                        + RC_LEARNERS,
+                        help="dqn, dueling, qrdqn, sarsa, double, cql, sac, ppo or reinforce "
+                        "on CartPole (default dqn); csac, "
                         "ddpg or td3 on Pendulum (default csac); her on sparse_reach; "
-                        "lstm_dqn or transformer_dqn on partial_cartpole")
+                        "lstm_dqn or transformer_dqn on partial_cartpole; iql or offline_cql "
+                        "on offline; rccsac on rc_pendulum")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
     learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
-                "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS}[args.env]
+                "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS,
+                "offline": OFFLINE_LEARNERS, "rc_pendulum": RC_LEARNERS}[args.env]
     if args.learner is None:
         args.learner = next(iter(learners))
     if args.learner not in learners:
         parser.error(f"--learner {args.learner} does not run on --env {args.env}")
     sys.path.insert(0, REPO)
     for seed in args.seeds:
+        if args.env in ("offline", "rc_pendulum"):
+            numbers = (
+                run_offline(args.package, args.learner, seed, args.device)
+                if args.env == "offline" else run_rc(args.package, seed, args.device)
+            )
+            print(json.dumps({"package": args.package, "env": args.env,
+                              "learner": args.learner, "seed": seed, **numbers}), flush=True)
+            continue
         t0 = time.perf_counter()
         res = run(args.package, args.env, args.learner, seed, args.device)
         extra = {}
