@@ -8,7 +8,8 @@ Phases, each printing its seconds:
   2. build: compiles every kernel of the port from `pearl_tpu_torch/csrc`
      (one nvcc per source, all at once);
   3. kernels: holds each kernel against its plain PyTorch version on the card
-     at the shapes the main paths give it (and at ragged ones), every body of
+     at the shapes the main paths give it (and at ragged ones; B1 also at
+     the classic runners' widths), every body of
      `fused_mlp` (rows, tiled, general) and of `ring_conv1` (mma, general)
      at shapes it takes, each C entry's choice of body against its Python
      mirror; times kernel, plain version and, where one PyTorch call computes
@@ -112,11 +113,35 @@ Phases, each printing its seconds:
  30. discrete iql: the registry's DiscreteIQL row on CartPole at 1024 envs
      through the runner; the value net moves in every learn, a call and a
      learn make no host sync.
+ 31. classic runners: the headline agent at its width on Acrobot (B1 on
+     6 -> 64 -> 64 -> 3: a warm-up call with every action in {0, 1, 2},
+     three timed calls, one act's Q values against `fused_mlp_reference`, a
+     profiled call, the device kernels of a step and a learn) and on
+     MountainCar (2 -> 64 -> 64 -> 3), B1 at 512 tiled + 128 rows launches
+     a call on both; the registry's ContinuousSAC row on
+     ContinuousMountainCar at 1024 envs, no kernel launch;
+ 32. frozen lake: DQN to the reference's anchor (return 1.0 five episodes
+     in a row), tabular Q whose greedy table reaches the goal, and a runner
+     call on the one-hot wrapper over the slippery lake, its slip drawn on
+     the card;
+ 33. breakout: the registry's CNNDQN row at 1024 envs (a warm-up and a
+     timed call, one act and one learn under the sync check) and the
+     reference's tracking-paddle dynamics check;
+ 34. ple and puckworld: the registry's DQN row at 1024 envs, one call on
+     each of Catcher, FlappyBird, Pixelcopter, Pong, PuckWorld and its PO,
+     SR and SF variants (rewards in each game's set, no early horizon); then
+     DQN on Catcher at the reference's settings at seeds 7 and 42, its gate
+     met at one (on the CPU: at 4 of 16 seeds in JAX, 3 of 16 in the port);
+ 35. recommender and bandit: DQN on the reference's recommender catalog (the
+     mean of the last 50 returns above 10.5, beside the catalog's random and
+     oracle click rates), QR-DQN risk-neutral and mean-variance on the
+     mean-variance bandit (the risky and the safe arm on more than 90% of
+     greedy acts).
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
- 13-15, 17-18, 27 and 29 reach B1 as the runner does, 16 through its
- multi-head DQNs; 19-21, 23-26, 28 and 30 run plain PyTorch products and
- cuDNN's LSTM (the reference's are flax stacks that XLA computes); 22's
- control runner reaches B7, B3 and B6b as phase 6 does.
+ 13-15, 17-18, 27, 29 and 31 reach B1 as the runner does, 16 through its
+ multi-head DQNs; 19-21, 23-26, 28, 30 and 32-35 run plain PyTorch products,
+ cuDNN's convolutions and LSTM (the reference's are flax stacks that XLA
+ computes); 22's control runner reaches B7, B3 and B6b as phase 6 does.
 Then one JSON line for the kernels, the card line, and the final JSON line.
 Any failure raises before the last line.
 """
@@ -126,10 +151,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -141,6 +168,8 @@ BF16_FLOP_PER_S = 989e12
 
 ACT_SHAPE = (131_072, (4, 64, 64, 2))
 LEARN_SHAPE = (1_024, (4, 64, 64, 2))
+# The headline agent on Acrobot (act and learn) and on MountainCar (act).
+CLASSIC_SHAPES = [(131_072, (6, 64, 64, 3)), (1_024, (6, 64, 64, 3)), (131_072, (2, 64, 64, 3))]
 WIDE_DIMS = (7, 96, 130, 5)  # a layer wider than the tiled body takes
 CHECK_SHAPES = [
     ACT_SHAPE, LEARN_SHAPE, (1_031, (5, 32, 48, 16, 3)), (37, (4, 64, 64, 2)),
@@ -150,7 +179,7 @@ CHECK_SHAPES = [
     # the rows body to the others, which depends on the card's SM count.
     (20_011, (4, 64, 64, 2)), (9_001, (5, 32, 48, 16, 3)), (300, WIDE_DIMS),
     (9_001, WIDE_DIMS),
-]
+] + CLASSIC_SHAPES
 
 
 def phase(name, t0):
@@ -227,7 +256,7 @@ def check_fused_mlp(card):
                              (switch + 1, WIDE_DIMS)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    timing = {}
+    timing = {"widths": {}}
     seen = set()
     for B, dims in shapes:
         body = fm.pick_body(B, dims, sms, optin)
@@ -264,12 +293,17 @@ def check_fused_mlp(card):
         print(f"fused_mlp B={B} dims={dims} body={body}: max_abs_err={err:.3e} "
               f"forward{'+grads' if grads else ''} ok", flush=True)
 
-        if (B, dims) in (ACT_SHAPE, LEARN_SHAPE):
+        if (B, dims) in [ACT_SHAPE, LEARN_SHAPE] + CLASSIC_SHAPES:
             ms = device_ms(lambda: fused_mlp(x, *wb))
             plain_ms = device_ms(lambda: fused_mlp_reference(x, wb))
             bound_ms, bound_by = mlp_bound_ms(B, dims)
-            timing[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             body=body)
+            t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, body=body)
+            if (B, dims) in CLASSIC_SHAPES:
+                # The act (B = 131072) in the tiled body, the learn in the rows body.
+                assert body == ("tiled" if B == ACT_SHAPE[0] else "rows"), (B, dims, body)
+                timing["widths"][f"B={B} dims={dims}"] = dict(t, max_abs_err=err)
+            else:
+                timing[B] = t
             print(
                 f"fused_mlp B={B} dims={dims} body={body}: kernel {ms:.4f} ms, plain version "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}",
@@ -1784,11 +1818,13 @@ def headline_runner(buffer=None, deferred_push=False):
     return [run_fn, astate, env_states, gen, agent]
 
 
-def interleaved_calls(runners, order, card, label):
+def interleaved_calls(runners, order, card, label, reward_bounds=None):
     """One timed call of each runner in `order` (names into `runners`), B1's
     launches by body counted from 0 in each and held at one call's 512 act
-    (tiled) and 128 learn (rows) launches. Returns (rates by name, counts by
-    name: each runner's counts from its own last call)."""
+    (tiled) and 128 learn (rows) launches; a call's reward sum within
+    `reward_bounds` (by default CartPole's: 1 an env step). Returns (rates by
+    name, counts by name: each runner's counts from its own last call)."""
+    low, high = reward_bounds or (DRV_B * DRV_SPL * DRV_CPD,) * 2
     rates = {name: [] for name in runners}
     counts = {}
     for name in order:
@@ -1800,7 +1836,7 @@ def interleaved_calls(runners, order, card, label):
         rates[name].append(DRV_B * DRV_SPL * DRV_CPD / (time.perf_counter() - t0))
         counts[name] = fused_counts()
         assert counts[name]["by_body"] == driver_body_counts(1), (name, counts[name])
-        assert stats["reward_sum"].item() == DRV_B * DRV_SPL * DRV_CPD
+        assert low <= stats["reward_sum"].item() <= high, (name, stats["reward_sum"].item())
         runners[name][1:3] = [astate, env_states]
     print(f"{label} ({DRV_B} envs, {DRV_CPD} learns per call), env-steps/s in the order run: "
           + ", ".join(f"{n} {rates[n][order[:i + 1].count(n) - 1]:.1f}"
@@ -2229,7 +2265,7 @@ DEV = "cuda"
 HIST_B, HIST_CAPACITY = 1_024, 65_536
 LSTM_ANCHOR = dict(num_envs=32, max_steps=100_000, learn_every_k_steps=4, learning_starts=2_000,
                    seed=7)
-RC_B, RC_LPC, RC_CALLS = 16, 250, 5
+RC_B, RC_LPC, RC_CALLS = 16, 250, 3
 
 
 def partial_cartpole():
@@ -2559,7 +2595,7 @@ def rc_lambda_rises(agent, env, astate, gen, updates=10):
 def run_rc(card):
     """RCCSAC (configs.py:401-408) on the safety suite's Pendulum with its
     torque cost (configs.py:775-784) at 16 envs, beside CSAC without the
-    module on the same env: one learn a step, 250 a call, 5 calls; lambda
+    module on the same env: one learn a step, 250 a call, 3 calls; lambda
     after each call, the mean episode cost (200 steps an episode, from the
     costs in replay) and the return; one learn under the sync check. Then
     RCPPO (configs.py:417-426: 8 rounds of 256, a rollout of 128) on CartPole
@@ -2885,6 +2921,493 @@ def run_discrete_iql(card):
     return out
 
 
+# Item 19, the remaining on-device envs: the headline agent at its width on
+# Acrobot and MountainCar (B1 at two more widths), the registry's rows at the
+# history phases' 1024 envs, and the reference's anchors at their settings.
+CLASSIC_CALLS = 3
+# Env steps to FrozenLake's anchor on the CPU at seed 42
+# (tests/torch_port_convergence.py --env frozen_lake).
+FROZEN_LAKE_CPU = {"jax": 6016, "torch": 2784}
+# Catcher's gate (tests/test_ple_envs.py:175-202) is met at 4 of 16 seeds in
+# JAX and 3 of 16 in the port on the CPU (tests/torch_port_convergence.py
+# --env catcher): the reference's seed and the convergence script's default
+# are run, and the gate must hold at one of them.
+CATCHER_SEEDS = (7, 42)
+# The reference's recommender (tests/test_recsys.py:18-21: PRNGKey(7), 50
+# items of 8, slates of 2) as numpy arrays (tests/torch_port_convergence.py's
+# `export_recsys_catalog`): the script runs without JAX.
+RECSYS_CATALOG = "pearl_tpu_torch/envs/data/recsys_catalog.npz"
+ENV_B, ENV_SPL, ENV_LPC, ENV_CAPACITY = 1_024, 4, 16, 65_536
+PLE_LPC = 32  # 128 steps a call: a Catcher fruit lands after 100
+
+
+def env_runner(agent, env, num_envs, spl, lpc, seed=0):
+    """`make_compiled_runner` of `agent` on `env`, initialised. Returns
+    [run_fn, astate, env_states, gen, agent]."""
+    from pearl_tpu_torch.training import make_compiled_runner
+    from pearl_tpu_torch.utils import make_generator
+
+    init_fn, run_fn = make_compiled_runner(agent, env, num_envs=num_envs, steps_per_learn=spl,
+                                           learns_per_call=lpc)
+    astate, env_states = init_fn(seed)
+    return [run_fn, astate, env_states, make_generator(seed, DEV), agent]
+
+
+def timed_call(runner, per_call):
+    """One call of `runner`, timed to a synchronise; updates the runner's
+    state in place. Returns (env-steps/s, the call's statistics)."""
+    run_fn, astate, env_states, gen, _ = runner
+    t0 = time.perf_counter()
+    astate, env_states, stats = run_fn(astate, env_states, gen)
+    torch.cuda.synchronize()
+    runner[1:3] = [astate, env_states]
+    return per_call / (time.perf_counter() - t0), stats
+
+
+def stored(replay, field):
+    return getattr(replay.storage, field)[:replay.size]
+
+
+def check_envs_make_no_sync(envs, card, action=None):
+    """A reset and a step of each env at ENV_B envs under the sync check:
+    the vector env resets a whole batch at every step, so neither may read
+    the card on the host. `action(env)` gives the step's actions, or None
+    for all zeros."""
+    from pearl_tpu_torch.utils import make_generator
+
+    gen = make_generator(0, DEV)
+    for env in envs:
+        a = None if action is None else action(env)
+        if a is None:
+            a = torch.zeros((ENV_B, 1), device=DEV)
+        state, obs = no_sync(lambda: env.reset(ENV_B, gen, DEV))
+        _, result = no_sync(lambda: env.step(state, a))
+        assert obs.shape == (ENV_B, env.observation_dim) and result.reward.shape == (ENV_B,)
+    print(f"a reset and a step of {len(envs)} envs at {ENV_B} each made no host sync: "
+          + ", ".join(type(e).__name__ for e in envs) + f" on {card}",
+          flush=True)
+
+
+def run_classic_runners(card):
+    """bench.py:176-211's headline agent at its width (131072 envs, 8 steps a
+    learn, 64 learns a call) on Acrobot (B1 on 6 -> 64 -> 64 -> 3) and
+    MountainCar (2 -> 64 -> 64 -> 3). Acrobot: a warm-up call in which every
+    action is in {0, 1, 2}, three timed calls, the Q values of one act held to
+    `fused_mlp_reference` to 1e-5, a profiled call and the device kernels of
+    one env step and one learn. MountainCar: a warm-up and a timed call. B1
+    at 512 tiled + 128 rows launches in every call of both. Then the
+    registry's ContinuousSAC row (configs.py:175-178: one round of 256, a
+    learn every step) on ContinuousMountainCar at 1024 envs, one short call,
+    which launches no kernel of the port."""
+    from pearl_tpu_torch.envs import Acrobot, ContinuousMountainCar, MountainCar
+    from pearl_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        ContinuousSoftActorCritic,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+
+    check_envs_make_no_sync([Acrobot(), MountainCar(), ContinuousMountainCar()], card)
+    per_call = DRV_B * DRV_SPL * DRV_CPD
+    out = {}
+    for name, env, calls in (("acrobot", Acrobot(), CLASSIC_CALLS), ("mountain car",
+                                                                      MountainCar(), 1)):
+        runner = env_runner(headline_agent(), env, DRV_B, DRV_SPL, DRV_CPD)
+        reset_fused_counts()
+        rate, _ = timed_call(runner, per_call)
+        warm = fused_counts()
+        assert warm["by_body"] == driver_body_counts(1), (name, warm)
+        index = stored(runner[1].replay, "action_index")
+        assert ((index >= 0) & (index <= 2)).all() and len(index.unique()) == 3, name
+        print(f"{name} runner warm-up call: {per_call / rate:.3f} s; every stored action in "
+              f"{{0, 1, 2}}; B1 {warm['by_body']}", flush=True)
+        # Every step is -1 until the goal (0 on Acrobot's last step).
+        rates, counts = interleaved_calls({name: runner}, (name,) * calls, card, f"{name} runner",
+                                          reward_bounds=(-per_call, 0))
+        out[name] = {"rates": rates[name], "counts": counts[name]}
+        if name != "acrobot":
+            continue
+        astate = runner[1]
+        mlp = astate.learner.params.MLP_0
+        x = astate.history_carry
+        q = fused_mlp(x, *mlp.wb())
+        ref = fused_mlp_reference(x, list(mlp.wb()))
+        err = (q - ref).abs().max().item()
+        assert q.shape == (DRV_B, 3) and err <= 1e-5, err
+        run_fn, _, env_states, gen, agent = runner
+        wall_s = per_call / statistics.mean(rates[name])
+        prof = profile_fn(lambda: run_fn(astate, env_states, gen), wall_s, unit="acrobot call")
+        per_step, per_learn, _, _, astate, env_states = kernels_per_step_and_learn(
+            agent, env, astate, env_states, gen, DRV_B, step_windows=SHORT_STEPS,
+            learn_windows=SHORT_LEARNS)
+        out[name].update(q_max_abs_err=err, profile=prof, kernels_per_step=per_step,
+                         kernels_per_learn=per_learn)
+        print(f"acrobot: the Q values of one act ({DRV_B} x 3) within {err:.3e} of "
+              f"fused_mlp_reference; {per_step:.1f} device kernels per env step, "
+              f"{per_learn:.1f} per learn on {card}", flush=True)
+    agent = dataclasses.replace(headline_agent(), policy_learner=ContinuousSoftActorCritic(
+        training_rounds=1, batch_size=256), replay_buffer=BasicReplayBuffer(ENV_CAPACITY))
+    runner = env_runner(agent, ContinuousMountainCar(), ENV_B, 1, ENV_LPC)
+    reset_fused_counts()
+    rate, stats = timed_call(runner, ENV_B * ENV_LPC)
+    action = stored(runner[1].replay, "action")
+    assert fused_counts()["launches"] == 0 and (action.abs() <= 1.0).all()
+    assert math.isfinite(stats["reward_sum"].item())
+    print(f"continuous mountain car, csac row ({ENV_B} envs, a learn every step, {ENV_LPC} "
+          f"learns): {rate:.1f} env-steps/s in its first call, no B1 launch, every action in "
+          f"[-1, 1] on {card}", flush=True)
+    out["continuous mountain car"] = rate
+    return out
+
+
+def frozen_lake_greedy_return(q_table):
+    """tests/test_misc_components.py:63-75: the greedy table's return from
+    the start of the still lake over 20 steps, one env on the card."""
+    from pearl_tpu_torch.envs import FrozenLake
+    from pearl_tpu_torch.utils import make_generator
+
+    env = FrozenLake(slippery=False)
+    state, obs = env.reset(1, make_generator(0, DEV), DEV)
+    total = 0.0
+    for _ in range(20):
+        a = q_table[obs.argmax(-1)].argmax(-1)
+        state, result = env.step(state, a.to(torch.float32)[:, None])
+        obs = result.observation
+        total += result.reward.item()
+        if result.done.item():
+            break
+    return total
+
+
+def registry_dqn(capacity=ENV_CAPACITY, warmup_steps=20_000):
+    """The registry's DQN row (configs.py:86-91: two rounds of 128, ε from
+    0.5 to 0.05 over `warmup_steps`) with a replay of `capacity` rows."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+
+    return PearlAgent(
+        policy_learner=DeepQLearning(training_rounds=2, batch_size=128,
+                                     exploration=EGreedyExploration(
+                                         start_epsilon=0.5, end_epsilon=0.05,
+                                         warmup_steps=warmup_steps)),
+        replay_buffer=BasicReplayBuffer(capacity=capacity))
+
+
+def run_frozen_lake(card):
+    """DQN to FrozenLake's anchor (test_convergence.py:266-286: one-hot, not
+    slippery, 16 envs, return 1.0 five episodes in a row within 300000
+    steps), tabular Q at tests/test_misc_components.py:51-75's settings
+    (lr 0.5, ε 0.3, 8 envs, 16000 steps; the greedy table reaches the goal),
+    then the registry's DQN row through the runner at 1024 envs on
+    OneHotObservationsFromDiscrete(FrozenLake(one_hot_obs=False)), the slip
+    drawn on the card: about a third of the moves off the intended one."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import FrozenLake, FrozenLakeState, OneHotObservationsFromDiscrete
+    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        DeepQLearning, TabularQLearning,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.training import online_learning
+
+    check_envs_make_no_sync([FrozenLake(), OneHotObservationsFromDiscrete(
+        FrozenLake(one_hot_obs=False))], card)
+    out = {}
+    t0 = time.perf_counter()
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(training_rounds=4, batch_size=64,
+                                     exploration=EGreedyExploration(epsilon=0.05)),
+        replay_buffer=BasicReplayBuffer(capacity=10_000))
+    res = online_learning(agent, FrozenLake(one_hot_obs=True, slippery=False), num_envs=16,
+                          max_steps=300_000, learn_every_k_steps=2, learning_starts=500, seed=42,
+                          target_return=1.0, target_window=5)
+    seconds = time.perf_counter() - t0
+    print(f"frozen lake dqn: reached_target={res.reached_target} after {res.total_steps} env "
+          f"steps, {len(res.episode_returns)} episodes, {seconds:.1f} s (CPU, seed 42: "
+          f"JAX {FROZEN_LAKE_CPU['jax']}, port {FROZEN_LAKE_CPU['torch']} env steps) on {card}",
+          flush=True)
+    assert res.reached_target, "DQN did not reach FrozenLake's 1.0 five episodes in a row"
+    out["dqn"] = {"env_steps": res.total_steps, "seconds": seconds}
+
+    t0 = time.perf_counter()
+    agent = PearlAgent(
+        policy_learner=TabularQLearning(learning_rate=0.5,
+                                        exploration=EGreedyExploration(epsilon=0.3)),
+        replay_buffer=BasicReplayBuffer(capacity=8))
+    res = online_learning(agent, FrozenLake(slippery=False), num_envs=8, max_steps=8 * 2000,
+                          learn_every_k_steps=1, seed=0)
+    total = frozen_lake_greedy_return(res.agent_state.learner.q_table)
+    seconds = time.perf_counter() - t0
+    print(f"frozen lake tabular q: 16000 env steps in {seconds:.1f} s; the greedy table's "
+          f"return {total} from the start on {card}", flush=True)
+    assert total == 1.0, "the greedy table did not reach FrozenLake's goal"
+    out["tabular q"] = {"greedy_return": total, "seconds": seconds}
+
+    env = OneHotObservationsFromDiscrete(FrozenLake(one_hot_obs=False, slippery=True))
+    runner = env_runner(registry_dqn(), env, ENV_B, ENV_SPL, ENV_LPC)
+    rate, stats = timed_call(runner, ENV_B * ENV_SPL * ENV_LPC)
+    replay = runner[1].replay
+    obs, nxt = stored(replay, "state"), stored(replay, "next_state")
+    assert (obs.sum(-1) == 1).all() and (nxt.sum(-1) == 1).all()
+    assert set(stored(replay, "reward").unique().tolist()) <= {0.0, 1.0}
+    assert runner[2].generator.device.type == torch.device(DEV).type  # drawn on the card
+    pos = obs.argmax(-1).to(torch.int32)
+    intended, _ = FrozenLake(slippery=False)._transition(
+        FrozenLakeState(pos=pos, t=torch.zeros_like(pos)), stored(replay, "action"))
+    on_course = (intended.pos == nxt.argmax(-1)).float().mean().item()
+    # A third of the moves keep their course, and some slips into a wall or
+    # the lake's edge land where the intended move would have.
+    assert 0.3 < on_course < 0.6, on_course
+    print(f"slippery frozen lake, one-hot wrapper, dqn row ({ENV_B} envs): {rate:.1f} env-steps/s "
+          f"in its first call, {stats['episodes'].item()} episodes; {on_course:.3f} of "
+          f"{replay.size} moves landed where the intended move leads on {card}", flush=True)
+    out["slippery runner"] = {"rate": rate, "on_course": on_course}
+    return out
+
+
+def breakout_tracking_check():
+    """tests/test_breakout_cnn.py:14-44 on the card: a paddle that follows
+    the ball's next column for 300 steps across restarting episodes hits
+    bricks (reward at least 2) and keeps the ball for at least 10 steps."""
+    from pearl_tpu_torch.envs import Breakout
+    from pearl_tpu_torch.utils import make_generator
+
+    env = Breakout()
+    state, _ = env.reset(1, make_generator(0, DEV), DEV)
+    total, ep_len, ep_lens = 0.0, 0, []
+    for i in range(300):
+        ball_col, dcol = state.ball[0, 1].item(), state.ddir[0, 1].item()
+        target, paddle = min(max(ball_col + dcol, 0), 9), state.paddle[0].item()
+        a = 2 if target > paddle else (0 if target < paddle else 1)
+        state, result = env.step(state, torch.tensor([[float(a)]], device=DEV))
+        total += result.reward.item()
+        ep_len += 1
+        if result.terminated.item():
+            ep_lens.append(ep_len)
+            ep_len = 0
+            state, _ = env.reset(1, make_generator(1000 + i, DEV), DEV)
+    return total, max(ep_lens + [ep_len])
+
+
+def run_breakout(card):
+    """The registry's CNNDQN row (configs.py:256-261, 560-577: a CNN over
+    (10, 10, 4), channels 16 and 32, hidden 128, one round of 512, a learn
+    every 4 steps) on Breakout through the runner at 1024 envs: a warm-up
+    call, a timed call, then one act and one learn under the sync check;
+    then the tracking-policy dynamics check."""
+    from pearl_tpu_torch.envs import Breakout
+    from pearl_tpu_torch.neural_networks import CNNQValueNetwork
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+
+    env = Breakout()
+    check_envs_make_no_sync([env], card)
+    row = registry_dqn()
+    agent = dataclasses.replace(row, policy_learner=DeepQLearning(
+        q_network=CNNQValueNetwork(input_shape=(10, 10, 4), out_channels=(16, 32),
+                                   kernel_sizes=(3, 3), strides=(1, 1), paddings=(1, 1),
+                                   hidden_dims=(128,)),
+        training_rounds=1, batch_size=512, exploration=row.policy_learner.exploration))
+    runner = env_runner(agent, env, ENV_B, ENV_SPL, ENV_LPC)
+    per_call = ENV_B * ENV_SPL * ENV_LPC
+    rates = [timed_call(runner, per_call)[0] for _ in range(2)]
+    _, astate, env_states, gen, agent = runner
+    replay = astate.replay
+    assert set(stored(replay, "reward").unique().tolist()) <= {0.0, 1.0}
+    assert stored(replay, "state").shape[1] == 400
+    bound = agent.for_env(env)
+    astate, choice = no_sync(lambda: bound.act(astate, gen))
+    astate, metrics = no_sync(lambda: bound.learn(astate, gen))
+    loss = {k: v.item() for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in loss.values()) and choice.index.shape == (ENV_B,)
+    total, longest = breakout_tracking_check()
+    assert total >= 2.0 and longest >= 10, (total, longest)
+    print(f"breakout, cnn dqn row ({ENV_B} envs, {ENV_SPL} steps a learn, {ENV_LPC} learns a "
+          f"call): env-steps/s warm-up {rates[0]:.1f}, timed {rates[1]:.1f}; one act and one "
+          f"learn made no host sync ({loss}); the tracking paddle scored {total} in 300 steps, "
+          f"the longest episode {longest} steps on {card}", flush=True)
+    return {"rates": rates, "tracking_reward": total, "longest_episode": longest}
+
+
+def ple_envs():
+    """The PLE grid of configs.py:655-711: the four games, PuckWorld and its
+    PO (velocities hidden), SR (1 within 0.1 of the target) and SF (the
+    risky half x > 0.5, N(0.01, 0.1) on its reward) variants; each with
+    the set its rewards lie in (None: a real interval) and its horizon."""
+    from pearl_tpu_torch.envs import (
+        Catcher, FlappyBird, PartialObservabilityWrapper, Pixelcopter, Pong, PuckWorld,
+        SafetyWrapper, SparseRewardWrapper,
+    )
+
+    def success(obs):
+        return torch.linalg.vector_norm(obs[..., 0:2] - obs[..., 4:6], dim=-1) < 0.1
+
+    games = {0.0, 1.0, -1.0, -5.0, 2.0, -4.0}  # two pipes at once, a pass and a crash
+    return {
+        "Catcher": (Catcher(), {0.0, 1.0, -1.0, -5.0}),
+        "FlappyBird": (FlappyBird(), games),
+        "Pixelcopter": (Pixelcopter(), {0.0, 1.0, -5.0, -4.0}),
+        "Pong": (Pong(), {0.0, 1.0, -1.0}),
+        "PuckWorld": (PuckWorld(), None),
+        "PuckWorld-PO": (PartialObservabilityWrapper(PuckWorld(),
+                                                     observed_indices=(0, 1, 4, 5, 6, 7)), None),
+        "PuckWorld-SR": (SparseRewardWrapper(PuckWorld(), success_fn=success), {0.0, 1.0}),
+        "PuckWorld-SF": (SafetyWrapper(PuckWorld(), risky_fn=lambda o, a: o[..., 0] > 0.5,
+                                       noisy_reward_sigma=0.1), None),
+    }
+
+
+def run_ple(card):
+    """The registry's DQN row at 1024 envs, one runner call on each env of
+    `ple_envs` (128 steps from reset: no game reaches its 500-step horizon,
+    PuckWorld never terminates), rewards in each game's set; then DQN on
+    Catcher at tests/test_ple_envs.py:175-202's settings and gate."""
+    from pearl_tpu_torch.envs import Catcher
+    from pearl_tpu_torch.training import online_learning
+
+    out = {}
+    check_envs_make_no_sync([env for env, _ in ple_envs().values()], card)
+    per_call = ENV_B * ENV_SPL * PLE_LPC
+    for name, (env, rewards) in ple_envs().items():
+        runner = env_runner(registry_dqn(), env, ENV_B, ENV_SPL, PLE_LPC)
+        rate, stats = timed_call(runner, per_call)
+        replay = runner[1].replay
+        reward = stored(replay, "reward")
+        assert torch.isfinite(reward).all() and not stored(replay, "truncated").any(), name
+        if rewards is not None:
+            assert set(reward.unique().tolist()) <= rewards, (name, reward.unique())
+        if name.startswith("PuckWorld"):
+            assert stats["episodes"].item() == 0 and not stored(replay, "terminated").any()
+        out[name] = rate
+        print(f"{name}, dqn row ({ENV_B} envs): {rate:.1f} env-steps/s in its first call, "
+              f"{stats['episodes'].item()} episodes, rewards in [{reward.min().item():.4f}, "
+              f"{reward.max().item():.4f}] on {card}", flush=True)
+    met = []
+    for seed in CATCHER_SEEDS:
+        t0 = time.perf_counter()
+        agent = registry_dqn(capacity=50_000, warmup_steps=30_000)
+        res = online_learning(agent, Catcher(), num_envs=32, max_steps=120_000,
+                              learn_every_k_steps=4, learning_starts=2_000, seed=seed)
+        r = np.asarray(res.episode_returns)
+        n = max(len(r) // 10, 20)
+        first, last = float(r[:n].mean()), float(r[-n:].mean())
+        seconds = time.perf_counter() - t0
+        met.append(last > first + 1.0)
+        print(f"catcher dqn, seed {seed}: the mean return of the first tenth of {len(r)} episodes "
+              f"{first:.3f}, of the last {last:.3f} (gate: 1.0 higher: "
+              f"{'met' if met[-1] else 'not met'}) after 120000 env steps, {seconds:.1f} s on "
+              f"{card}", flush=True)
+        out[f"catcher learning, seed {seed}"] = {"first": first, "last": last,
+                                                 "seconds": seconds}
+    assert any(met), "DQN on Catcher met the reference's gate at none of its seeds"
+    return out
+
+
+def recsys_click_rates(env, num_envs=4096):
+    """Clicks a 20-step episode of a policy that picks at random from each
+    slate and of one that picks the item of highest click probability,
+    in expectation (the sum of p), over `num_envs` users on the card."""
+    from pearl_tpu_torch.utils import make_generator
+
+    gen = make_generator(1, DEV)
+    rates = {}
+    for policy in ("random", "oracle"):
+        state, _ = env.reset(num_envs, gen, DEV)
+        total = torch.zeros((), device=DEV)
+        for _ in range(env.episode_length):
+            p = torch.stack([env.click_probability(state.history, env.items[i].expand(
+                num_envs, -1)) for i in range(env.num_items)], -1)  # (B, items)
+            if policy == "random":
+                score = torch.rand(p.shape, generator=gen, device=DEV)
+            else:
+                score = p
+            pick = torch.where(state.slate_mask, score, -1.0).argmax(-1)
+            total += p.gather(1, pick[:, None]).sum()
+            state, _ = env.step(state, env.items[pick])
+        rates[policy] = total.item() / num_envs
+    return rates
+
+
+def run_recsys_and_bandit(card):
+    """DQN on the recommender at tests/test_recsys.py:57-80's settings (the
+    identity action representation, the availability masks in replay, 32
+    envs, 40000 steps, seed 3; the mean of the last 50 returns above 10.5)
+    on the reference's catalog and user model (RECSYS_CATALOG), with its
+    random and oracle click rates (the reference's: about 9.4 and 13.0);
+    then QR-DQN on the mean-variance bandit at
+    tests/test_risk_sensitive_and_transformer.py:22-59's settings,
+    risk-neutral (the risky arm on more than 90% of 16 greedy acts) and
+    mean-variance (the safe arm)."""
+    from pearl_tpu_torch.action_representation_modules import IdentityActionRepresentation
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import FixedNumberOfStepsEnvironment, MeanVarBanditEnvironment
+    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        DeepQLearning, QuantileRegressionDeepQLearning,
+    )
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.safety_modules import (
+        QuantileNetworkMeanVarianceSafetyModule, RiskNeutralSafetyModule,
+    )
+    from pearl_tpu_torch.training import online_learning
+    from pearl_tpu_torch.utils import make_generator
+    from pearl_tpu_torch.utils.jax_params import recommender_env_from_jax
+
+    out = {}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), RECSYS_CATALOG)
+    with np.load(path) as catalog:
+        env = recommender_env_from_jax(types.SimpleNamespace(**catalog), DEV)
+    check_envs_make_no_sync(
+        [env, MeanVarBanditEnvironment(), FixedNumberOfStepsEnvironment()], card,
+        action=lambda e: e.items[:1].expand(ENV_B, -1) if e is env else None)
+    baselines = recsys_click_rates(env)
+    t0 = time.perf_counter()
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(
+            training_rounds=2, batch_size=128,
+            exploration=EGreedyExploration(start_epsilon=0.3, end_epsilon=0.05,
+                                           warmup_steps=10_000),
+            action_representation=IdentityActionRepresentation()),
+        replay_buffer=BasicReplayBuffer(capacity=20_000),
+        track_available_masks=True)
+    res = online_learning(agent, env, num_envs=32, max_steps=40_000, learn_every_k_steps=4,
+                          learning_starts=1_000, seed=3)
+    last = float(np.asarray(res.episode_returns)[-50:].mean())
+    replay = res.agent_state.replay
+    chosen = stored(replay, "curr_available_mask").gather(
+        1, stored(replay, "action_index").long()[:, None])
+    seconds = time.perf_counter() - t0
+    print(f"recsys dqn: the mean of the last 50 returns {last:.2f} (gate 10.5; this catalog's "
+          f"random slate pick {baselines['random']:.2f}, oracle {baselines['oracle']:.2f}) "
+          f"after 40000 env steps, {seconds:.1f} s; every stored action was in its slate on "
+          f"{card}", flush=True)
+    assert chosen.all() and last > 10.5, last
+    out["recsys"] = {"mean_last_50": last, **baselines, "seconds": seconds}
+
+    for name, module, arm in (("risk-neutral", RiskNeutralSafetyModule(), 1),
+                              ("mean-variance", QuantileNetworkMeanVarianceSafetyModule(
+                                  variance_weighting_coefficient=0.5), 0)):
+        t0 = time.perf_counter()
+        agent = PearlAgent(
+            policy_learner=QuantileRegressionDeepQLearning(
+                training_rounds=2, batch_size=64, exploration=EGreedyExploration(epsilon=0.3),
+                discount_factor=0.0),
+            replay_buffer=BasicReplayBuffer(capacity=2048), safety_module=module)
+        bandit = MeanVarBanditEnvironment()
+        res = online_learning(agent, bandit, num_envs=8, max_steps=3_000 * 8,
+                              learn_every_k_steps=2, learning_starts=256, seed=0)
+        learner = agent.for_env(bandit).policy_learner
+        _, choice = learner.act(res.agent_state.learner, torch.zeros((16, 1), device=DEV), None,
+                                make_generator(0, DEV), exploit=True)
+        share = (choice.index == arm).float().mean().item()
+        seconds = time.perf_counter() - t0
+        print(f"mean-variance bandit, qr-dqn {name}: arm {arm} on {share:.3f} of 16 greedy acts "
+              f"(gate 0.9) after 24000 env steps, {seconds:.1f} s on {card}", flush=True)
+        assert share > 0.9, (name, share)
+        out[name] = {"share": share, "seconds": seconds}
+    return out
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -3078,6 +3601,26 @@ def main() -> int:
     run_discrete_iql(card)
     phase("discrete iql", t0)
 
+    t0 = time.perf_counter()
+    classic = run_classic_runners(card)
+    phase("classic runners", t0)
+
+    t0 = time.perf_counter()
+    run_frozen_lake(card)
+    phase("frozen lake", t0)
+
+    t0 = time.perf_counter()
+    run_breakout(card)
+    phase("breakout", t0)
+
+    t0 = time.perf_counter()
+    run_ple(card)
+    phase("ple and puckworld", t0)
+
+    t0 = time.perf_counter()
+    run_recsys_and_bandit(card)
+    phase("recommender and bandit", t0)
+
     act = timing[ACT_SHAPE[0]]
     kernels = [{
         "name": "fused_mlp",
@@ -3105,7 +3648,10 @@ def main() -> int:
             "masked headline runner (one call)": masked["counts"],
             "offline cql learn (1000 batches)": offline_cql["learn"],
             "offline cql evaluation (16384 env steps)": offline_cql["evaluation"],
+            "acrobot runner (one call)": classic["acrobot"]["counts"],
+            "mountain car runner (one call)": classic["mountain car"]["counts"],
         },
+        "widths": timing["widths"],
         "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],
         "learn_shape": timing[LEARN_SHAPE[0]],
     }]

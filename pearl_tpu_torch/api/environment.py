@@ -47,3 +47,8 @@ class Environment(abc.ABC):
     @abc.abstractmethod
     def step(self, state: EnvState, action: torch.Tensor) -> Tuple[EnvState, ActionResult]:
         ...
+
+    @property
+    def max_episode_steps(self) -> int:
+        """Truncation horizon (0 = none)."""
+        return 0

@@ -38,6 +38,10 @@ class DiscreteSpace:
         return int(self.elements.shape[1])
 
     @property
+    def shape(self):
+        return (self.n, self.element_dim)
+
+    @property
     def is_continuous(self) -> bool:
         return False
 

@@ -1,5 +1,31 @@
+from pearl_tpu_torch.envs.breakout import Breakout, BreakoutState
 from pearl_tpu_torch.envs.cartpole import CartPole, CartPoleState
+from pearl_tpu_torch.envs.classic import (
+    Acrobot,
+    AcrobotState,
+    ContinuousMountainCar,
+    MountainCar,
+    MountainCarState,
+)
+from pearl_tpu_torch.envs.frozen_lake import FrozenLake, FrozenLakeState
+from pearl_tpu_torch.envs.misc import (
+    FixedNumberOfStepsEnvironment,
+    MeanVarBanditEnvironment,
+    StepCountState,
+)
 from pearl_tpu_torch.envs.pendulum import Pendulum, PendulumState
+from pearl_tpu_torch.envs.ple import (
+    Catcher,
+    CatcherState,
+    FlappyBird,
+    FlappyBirdState,
+    Pixelcopter,
+    PixelcopterState,
+    Pong,
+    PongState,
+)
+from pearl_tpu_torch.envs.puckworld import PuckWorld, PuckWorldState
+from pearl_tpu_torch.envs.recsys import RecommenderEnvironment, RecSysState
 from pearl_tpu_torch.envs.sparse_reward import (
     ContinuousSparseRewardEnvironment,
     DiscreteSparseRewardEnvironment,
@@ -10,24 +36,56 @@ from pearl_tpu_torch.envs.vector import VectorEnv
 from pearl_tpu_torch.envs.wrappers import (
     DynamicActionSpaceWrapper,
     EnvWrapper,
+    FlattenDictObservations,
+    FlattenObservations,
+    OneHotObservationsFromDiscrete,
     PartialObservabilityWrapper,
     SafetyWrapper,
     SafetyWrapperState,
+    SparseRewardWrapper,
 )
 
 __all__ = [
+    "Acrobot",
+    "AcrobotState",
+    "Breakout",
+    "BreakoutState",
     "CartPole",
     "CartPoleState",
+    "Catcher",
+    "CatcherState",
+    "ContinuousMountainCar",
     "ContinuousSparseRewardEnvironment",
     "DiscreteSparseRewardEnvironment",
     "DynamicActionSpaceWrapper",
     "EnvWrapper",
-    "Pendulum",
+    "FixedNumberOfStepsEnvironment",
+    "FlappyBird",
+    "FlappyBirdState",
+    "FlattenDictObservations",
+    "FlattenObservations",
+    "FrozenLake",
+    "FrozenLakeState",
+    "MeanVarBanditEnvironment",
+    "MountainCar",
+    "MountainCarState",
+    "OneHotObservationsFromDiscrete",
     "PartialObservabilityWrapper",
+    "Pendulum",
     "PendulumState",
+    "Pixelcopter",
+    "PixelcopterState",
+    "Pong",
+    "PongState",
+    "PuckWorld",
+    "PuckWorldState",
+    "RecSysState",
+    "RecommenderEnvironment",
     "SafetyWrapper",
     "SafetyWrapperState",
     "SparseRewardState",
+    "SparseRewardWrapper",
+    "StepCountState",
     "SyntheticAtari",
     "SyntheticAtariState",
     "VectorEnv",

@@ -48,6 +48,9 @@ per layer, `{"LSTMCell_k": {"ii", "if", "ig", "io": {kernel (in, H)},
 "value": {kernel (d, heads, d/heads), bias (heads, d/heads)}, "out": {kernel
 (heads, d/heads, d), bias (d,)}}, "ln2_i", "mlp1_i", "mlp2_i", "ln_f"}`
 (`load_flax_transformer_params`).
+
+`recommender_env_from_jax` builds the port's recommender env from a JAX
+env's catalog and user-model arrays.
 """
 
 from __future__ import annotations
@@ -425,3 +428,20 @@ def load_flax_iql_state(state, params: Mapping):
     load_flax_twin_critic_params(state.critic_target_params, params["critic_target_params"])
     load_flax_value_params(state.extra.value_params, params["value_params"])
     return state
+
+
+def recommender_env_from_jax(jax_env, device) -> "RecommenderEnvironment":
+    """The port's `RecommenderEnvironment` with a JAX env's catalog and user
+    model: its `items`, `w1`, `b1` and `w2` (anything numpy reads) on
+    `device`, and its scalar fields. The arrays play the part of weights:
+    both packages then compute the same click probabilities."""
+    from pearl_tpu_torch.envs.recsys import RecommenderEnvironment
+
+    def tensor(name):
+        return torch.as_tensor(np.array(getattr(jax_env, name), np.float32), device=device)
+
+    return RecommenderEnvironment(
+        items=tensor("items"), w1=tensor("w1"), b1=tensor("b1"), w2=tensor("w2"),
+        slate_size=int(jax_env.slate_size), episode_length=int(jax_env.episode_length),
+        history_length=int(jax_env.history_length), logit_scale=float(jax_env.logit_scale),
+    )

@@ -35,11 +35,8 @@ from pearl_tpu.training import offline as jax_offline
 from pearl_tpu.training.collect import collect_offline_data as jax_collect
 from pearl_tpu.utils.metrics import normalized_score as jax_normalized_score
 from pearl_tpu_torch.agent import PearlAgent
-from pearl_tpu_torch.api.environment import Environment
-from pearl_tpu_torch.api.spaces import BoxSpace, DiscreteActionSpace
-from pearl_tpu_torch.api.types import ActionResult
 from pearl_tpu_torch.benchmarks import mix_datasets, run_offline_rl_benchmark
-from pearl_tpu_torch.envs import CartPole, Pendulum
+from pearl_tpu_torch.envs import CartPole, FixedNumberOfStepsEnvironment, Pendulum
 from pearl_tpu_torch.policy_learners.sequential_decision_making import (
     TD3BC,
     ContinuousSoftActorCritic,
@@ -361,41 +358,6 @@ def test_mix_datasets_fractions():
 
 
 # ----------------------------------------------------------- collection
-@dataclasses.dataclass
-class _StepCount:
-    t: torch.Tensor  # (B,) int32
-
-
-@dataclasses.dataclass(frozen=True)
-class _FixedSteps(Environment):
-    """The JAX package's `FixedNumberOfStepsEnvironment`, batched: the
-    observation counts the steps of the episode, which truncates after
-    `number_of_steps`; the reward is the action taken."""
-
-    number_of_steps: int = 5
-
-    @property
-    def action_space(self):
-        return DiscreteActionSpace.discrete(2)
-
-    @property
-    def observation_space(self):
-        return BoxSpace.create([0.0], [float(self.number_of_steps)])
-
-    def reset(self, num_envs, generator, device):
-        t = torch.zeros((num_envs,), dtype=torch.int32, device=device)
-        return _StepCount(t=t), torch.zeros((num_envs, 1), device=device)
-
-    def step(self, state, action):
-        t = state.t + 1
-        return _StepCount(t=t), ActionResult(
-            observation=t.to(torch.float32)[:, None],
-            reward=action[:, 0].to(torch.float32),
-            terminated=torch.zeros_like(t, dtype=torch.bool),
-            truncated=t >= self.number_of_steps,
-        )
-
-
 def test_collect_offline_data_holds_jax_rows_in_jax_slots_when_the_ring_wraps(tmp_path):
     """48 transitions from 4 envs: two chunks of 8 steps write 64 rows, so
     the last 16 wrap over slots 0-15 and the buffer is not in time order.
@@ -407,7 +369,7 @@ def test_collect_offline_data_holds_jax_rows_in_jax_slots_when_the_ring_wraps(tm
     path = str(tmp_path / "c.npz")
     batch = collect_offline_data(
         PearlAgent(policy_learner=DeepQLearning(training_rounds=1, batch_size=8)),
-        _FixedSteps(5), save_path=path, device="cpu", **kw,
+        FixedNumberOfStepsEnvironment(5), save_path=path, device="cpu", **kw,
     )
     assert batch.reward.shape == (48,)
     for name in ("state", "next_state", "terminated", "truncated"):
@@ -418,7 +380,7 @@ def test_collect_offline_data_holds_jax_rows_in_jax_slots_when_the_ring_wraps(tm
     # what 64 slots hold at 48-63 and 16-47.
     whole = collect_offline_data(
         PearlAgent(policy_learner=DeepQLearning(training_rounds=1, batch_size=8)),
-        _FixedSteps(5), device="cpu", **{**kw, "num_transitions": 64},
+        FixedNumberOfStepsEnvironment(5), device="cpu", **{**kw, "num_transitions": 64},
     )
     assert torch.equal(batch.next_state[:16], whole.next_state[48:])
     assert torch.equal(batch.next_state[16:], whole.next_state[16:48])

@@ -10,7 +10,13 @@ LSTM or a transformer summarizer on CartPole that shows positions only
 (tests/test_wrappers_and_history.py:106-134 and
 tests/test_risk_sensitive_and_transformer.py:139-170: the mean return of the
 last tenth of the episodes, which the reference holds above 100); and the
-offline pipelines (`--env offline`, see OFFLINE_LEARNERS). Not collected by
+offline pipelines (`--env offline`, see OFFLINE_LEARNERS); and the anchors of
+the remaining envs (see ENV_ANCHORS): DQN on FrozenLake
+(test_convergence.py:266-286, return 1.0 five episodes in a row), tabular Q
+on FrozenLake (tests/test_misc_components.py:51-75, its greedy table reaches
+the goal), DQN on Catcher (tests/test_ple_envs.py:175-202), DQN on the
+recommender (tests/test_recsys.py:57-80) and QR-DQN on the mean-variance
+bandit (tests/test_risk_sensitive_and_transformer.py:22-59). Not collected by
 pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
@@ -24,6 +30,9 @@ pytest; run it:
     python tests/torch_port_convergence.py --package torch --learner cql
     python tests/torch_port_convergence.py --package torch --env offline --learner iql
     python tests/torch_port_convergence.py --package torch --env rc_pendulum --seeds 0 1 2
+    python tests/torch_port_convergence.py --package torch --env frozen_lake --learner tabular_q
+    python tests/torch_port_convergence.py --package torch --env mean_var_bandit \
+        --learner qrdqn_mean_variance --seeds 0
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -105,6 +114,15 @@ OFFLINE_LEARNERS = ("iql", "offline_cql")
 # E[max(Q_c1, Q_c2)] * (1 - 0.5) at 4096 replay states under the policy's
 # actions, which must pass the constraint for lambda to leave 0.
 RC_LEARNERS = ("rccsac",)
+# The remaining envs' anchors, by env: its learners and the seed the
+# reference's test runs at.
+ENV_ANCHORS = {
+    "frozen_lake": (("dqn", "tabular_q"), {"dqn": 42, "tabular_q": 0}),
+    "catcher": (("dqn",), {"dqn": 7}),
+    "recsys": (("dqn",), {"dqn": 3}),
+    "mean_var_bandit": (("qrdqn_risk_neutral", "qrdqn_mean_variance"),
+                        {"qrdqn_risk_neutral": 0, "qrdqn_mean_variance": 0}),
+}
 LEARNER_NAMES = {
     "csac": "ContinuousSoftActorCritic", "ddpg": "DeepDeterministicPolicyGradient", "td3": "TD3",
     "sac": "SoftActorCritic", "ppo": "ProximalPolicyOptimization", "reinforce": "REINFORCE",
@@ -272,6 +290,176 @@ def run_offline(package, learner_name, seed, device):
     }
 
 
+def _greedy_frozen_lake_return(package, q_table):
+    """The greedy table's return from FrozenLake's start over 20 steps
+    (test_misc_components.py:63-75); the lake is not slippery, so the run is
+    the same in both packages."""
+    m = _modules(package)
+    env = m["envs"].FrozenLake(slippery=False)
+    q = np.asarray(q_table.cpu() if package == "torch" else q_table)
+    if package == "jax":
+        import jax
+        import jax.numpy as jnp
+
+        state, obs = env.reset(jax.random.PRNGKey(0))
+        step = lambda st, a: env.step(st, jnp.array([a], jnp.float32), jax.random.PRNGKey(0))  # noqa: E731
+        cell = lambda o: int(np.argmax(np.asarray(o)))  # noqa: E731
+    else:
+        import torch
+
+        state, obs = env.reset(1, torch.Generator().manual_seed(0), "cpu")
+        step = lambda st, a: env.step(st, torch.tensor([[float(a)]]))  # noqa: E731
+        cell = lambda o: int(np.argmax(np.asarray(o)[0]))  # noqa: E731
+    total = 0.0
+    for _ in range(20):
+        state, result = step(state, int(np.argmax(q[cell(obs)])))
+        obs = result.observation
+        total += float(np.asarray(result.reward).reshape(-1)[0])
+        if bool(np.asarray(result.terminated | result.truncated).reshape(-1)[0]):
+            break
+    return total
+
+
+def _greedy_bandit_choices(package, agent, env, learner_state, device):
+    """The share of 16 greedy acts on the bandit's observation that pick
+    arm 1 (test_risk_sensitive_and_transformer.py:48-53)."""
+    learner = agent.for_env(env).policy_learner
+    if package == "jax":
+        import jax
+        import jax.numpy as jnp
+
+        _, choice = learner.act(learner_state, jnp.zeros((16, 1)), None, jax.random.PRNGKey(0),
+                                exploit=True)
+    else:
+        import torch
+
+        _, choice = learner.act(learner_state, torch.zeros((16, 1), device=device), None,
+                                torch.Generator(device=device).manual_seed(0), exploit=True)
+    return float(np.mean(np.asarray(choice.index.cpu() if package == "torch" else choice.index)
+                         == 1))
+
+
+def run_env_anchor(package, env_name, learner_name, seed, device):
+    """One anchor of ENV_ANCHORS at `seed`; returns its numbers and whether
+    the reference's gate was met."""
+    m = _modules(package)
+    extra = {} if package == "jax" else {"device": device}
+    agent_mod, learners, expl, buffers = m["agent"], m["learners"], m["exploration"], m["buffers"]
+    t0 = time.perf_counter()
+    if env_name == "frozen_lake" and learner_name == "dqn":
+        agent = agent_mod.PearlAgent(
+            policy_learner=learners.DeepQLearning(
+                training_rounds=4, batch_size=64, exploration=expl.EGreedyExploration(epsilon=0.05)),
+            replay_buffer=buffers.BasicReplayBuffer(capacity=10_000),
+        )
+        res = m["training"].online_learning(
+            agent, m["envs"].FrozenLake(one_hot_obs=True, slippery=False), num_envs=16,
+            max_steps=300_000, learn_every_k_steps=2, learning_starts=500, seed=seed,
+            target_return=1.0, target_window=5, **extra)
+        out = {"reached_target": bool(res.reached_target), "env_steps": int(res.total_steps),
+               "anchor_met": bool(res.reached_target)}
+    elif env_name == "frozen_lake":
+        tabular = importlib.import_module(learners.__name__ + ".tabular_q")
+        agent = agent_mod.PearlAgent(
+            policy_learner=tabular.TabularQLearning(
+                learning_rate=0.5, exploration=expl.EGreedyExploration(epsilon=0.3)),
+            replay_buffer=buffers.BasicReplayBuffer(capacity=8),
+        )
+        res = m["training"].online_learning(
+            agent, m["envs"].FrozenLake(slippery=False), num_envs=8, max_steps=8 * 2000,
+            learn_every_k_steps=1, seed=seed, **extra)
+        total = _greedy_frozen_lake_return(package, res.agent_state.learner.q_table)
+        out = {"greedy_return": total, "anchor_met": total == 1.0}
+    elif env_name == "catcher":
+        agent = agent_mod.PearlAgent(
+            policy_learner=learners.DeepQLearning(
+                training_rounds=2, batch_size=128, exploration=expl.EGreedyExploration(
+                    start_epsilon=0.5, end_epsilon=0.05, warmup_steps=30_000)),
+            replay_buffer=buffers.BasicReplayBuffer(capacity=50_000),
+        )
+        res = m["training"].online_learning(
+            agent, m["envs"].Catcher(), num_envs=32, max_steps=120_000, learn_every_k_steps=4,
+            learning_starts=2_000, seed=seed, **extra)
+        r = np.asarray(res.episode_returns)
+        n = max(len(r) // 10, 20)
+        first, last = float(r[:n].mean()), float(r[-n:].mean())
+        out = {"mean_first_tenth": first, "mean_last_tenth": last,
+               "anchor_met": last > first + 1.0}
+    elif env_name == "recsys":
+        reps = importlib.import_module(
+            ("pearl_tpu" if package == "jax" else "pearl_tpu_torch")
+            + ".action_representation_modules")
+        agent = agent_mod.PearlAgent(
+            policy_learner=learners.DeepQLearning(
+                training_rounds=2, batch_size=128, exploration=expl.EGreedyExploration(
+                    start_epsilon=0.3, end_epsilon=0.05, warmup_steps=10_000),
+                action_representation=reps.IdentityActionRepresentation()),
+            replay_buffer=buffers.BasicReplayBuffer(capacity=20_000),
+            track_available_masks=True,
+        )
+        res = m["training"].online_learning(
+            agent, recsys_env(package, device), num_envs=32, max_steps=40_000,
+            learn_every_k_steps=4, learning_starts=1_000, seed=seed, **extra)
+        last = float(np.asarray(res.episode_returns)[-50:].mean())
+        out = {"mean_last_50": last, "anchor_met": last > 10.5}
+    else:
+        safety = importlib.import_module(
+            ("pearl_tpu" if package == "jax" else "pearl_tpu_torch") + ".safety_modules")
+        module = (safety.RiskNeutralSafetyModule() if learner_name == "qrdqn_risk_neutral" else
+                  safety.QuantileNetworkMeanVarianceSafetyModule(variance_weighting_coefficient=0.5))
+        agent = agent_mod.PearlAgent(
+            policy_learner=learners.QuantileRegressionDeepQLearning(
+                training_rounds=2, batch_size=64, exploration=expl.EGreedyExploration(epsilon=0.3),
+                discount_factor=0.0),
+            replay_buffer=buffers.BasicReplayBuffer(capacity=2048),
+            safety_module=module,
+        )
+        env = m["envs"].MeanVarBanditEnvironment()
+        res = m["training"].online_learning(
+            agent, env, num_envs=8, max_steps=3_000 * 8, learn_every_k_steps=2,
+            learning_starts=256, seed=seed, **extra)
+        risky = _greedy_bandit_choices(package, agent, env, res.agent_state.learner, device)
+        out = {"greedy_share_of_risky_arm": risky,
+               "anchor_met": risky > 0.9 if learner_name == "qrdqn_risk_neutral"
+               else 1.0 - risky > 0.9}
+    return {**out, "seconds": round(time.perf_counter() - t0, 1)}
+
+
+RECSYS_CATALOG = os.path.join(REPO, "pearl_tpu_torch", "envs", "data", "recsys_catalog.npz")
+
+
+def export_recsys_catalog(path=RECSYS_CATALOG):
+    """Write the JAX env's catalog and user model (`recsys_env("jax")`) and
+    its scalar fields to `path`: the file chip_smoke.py's recommender phase
+    loads, since it runs without JAX. Run:
+
+        python -c "from tests.torch_port_convergence import export_recsys_catalog as e; e()"
+    """
+    jenv = recsys_env("jax", None)
+    np.savez(path, **{k: np.asarray(getattr(jenv, k)) for k in (
+        "items", "w1", "b1", "w2", "slate_size", "episode_length", "history_length",
+        "logit_scale")})
+
+
+def recsys_env(package, device):
+    """tests/test_recsys.py:18-21's env: the JAX package's catalog and user
+    model from PRNGKey(7), carried to the port with
+    `recommender_env_from_jax` so both packages learn on one model."""
+    import jax
+
+    from pearl_tpu.envs.recsys import RecommenderEnvironment
+
+    jax.config.update("jax_platforms", "cpu")
+
+    jenv = RecommenderEnvironment.create(jax.random.PRNGKey(7), num_items=50, item_dim=8,
+                                         slate_size=2)
+    if package == "jax":
+        return jenv
+    from pearl_tpu_torch.utils.jax_params import recommender_env_from_jax
+
+    return recommender_env_from_jax(jenv, device)
+
+
 def run(package, env_name, learner_name, seed, device):
     m = _modules(package)
     extra = {} if package == "jax" else {"device": device}
@@ -356,28 +544,39 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
     parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach",
-                                          "partial_cartpole", "offline", "rc_pendulum"),
-                        default="cartpole")
-    parser.add_argument("--learner", choices=tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
-                        + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS) + OFFLINE_LEARNERS
-                        + RC_LEARNERS,
+                                          "partial_cartpole", "offline", "rc_pendulum")
+                        + tuple(ENV_ANCHORS), default="cartpole")
+    env_learners = tuple(x for names, _ in ENV_ANCHORS.values() for x in names)
+    parser.add_argument("--learner", choices=tuple(dict.fromkeys(
+                            tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
+                            + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS) + OFFLINE_LEARNERS
+                            + RC_LEARNERS + env_learners)),
                         help="dqn, dueling, qrdqn, sarsa, double, cql, sac, ppo or reinforce "
                         "on CartPole (default dqn); csac, "
                         "ddpg or td3 on Pendulum (default csac); her on sparse_reach; "
                         "lstm_dqn or transformer_dqn on partial_cartpole; iql or offline_cql "
-                        "on offline; rccsac on rc_pendulum")
+                        "on offline; rccsac on rc_pendulum; dqn or tabular_q on frozen_lake; "
+                        "dqn on catcher and recsys; qrdqn_risk_neutral or qrdqn_mean_variance "
+                        "on mean_var_bandit")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
     learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
                 "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS,
-                "offline": OFFLINE_LEARNERS, "rc_pendulum": RC_LEARNERS}[args.env]
+                "offline": OFFLINE_LEARNERS, "rc_pendulum": RC_LEARNERS,
+                **{name: names for name, (names, _) in ENV_ANCHORS.items()}}[args.env]
     if args.learner is None:
         args.learner = next(iter(learners))
     if args.learner not in learners:
         parser.error(f"--learner {args.learner} does not run on --env {args.env}")
     sys.path.insert(0, REPO)
     for seed in args.seeds:
+        if args.env in ENV_ANCHORS:
+            numbers = run_env_anchor(args.package, args.env, args.learner, seed, args.device)
+            print(json.dumps({"package": args.package, "env": args.env, "learner": args.learner,
+                              "seed": seed, "reference_seed": ENV_ANCHORS[args.env][1][
+                                  args.learner], **numbers}), flush=True)
+            continue
         if args.env in ("offline", "rc_pendulum"):
             numbers = (
                 run_offline(args.package, args.learner, seed, args.device)
