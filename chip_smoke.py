@@ -137,9 +137,25 @@ Phases, each printing its seconds:
      oracle click rates), QR-DQN risk-neutral and mean-variance on the
      mean-variance bandit (the risky and the safe arm on more than 90% of
      greedy acts).
+ 36. bandit anchors: the reference's bandit tests (tests/test_bandits.py)
+     on the card: LinUCB on the synthetic env (greedy regret below 0.1), the
+     disjoint UCB arms on the ten-times MAB (arm 3 everywhere), disjoint
+     linear arms recovering W to 0.02, the neural-linear sigmoid head (loss
+     below 0.01); an act, env step, observe and learn of LinUCB,
+     NeuralLinUCB and the disjoint linear container without a host sync;
+ 37. cb benchmark: the reference's UCI CB protocol, the four CB methods on
+     letter (T = 5000, 10 envs, seed 0), each below 0.75 beside JAX's CPU
+     value, with interactions/s and the device kernels of an act and of a
+     learn; the yeast NeuralSquareCB cell (below 0.5) and the offline
+     protocol on satimage (below 0.4);
+ 38. linucb runner: the registry's LinUCB row through the runner at 131072
+     envs, a learn every step: warm-up, timed calls, one under the sync
+     check, a profiled call, the device kernels of a step and of a learn;
+     the last call's mean regret below the first's.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
  13-15, 17-18, 27, 29 and 31 reach B1 as the runner does, 16 through its
- multi-head DQNs; 19-21, 23-26, 28, 30 and 32-35 run plain PyTorch products,
+ multi-head DQNs; 19-21, 23-26, 28, 30 and 32-38 run plain PyTorch products
+ (36-38: matrix products and small Cholesky solves),
  cuDNN's convolutions and LSTM (the reference's are flax stacks that XLA
  computes); 22's control runner reaches B7, B3 and B6b as phase 6 does.
 Then one JSON line for the kernels, the card line, and the final JSON line.
@@ -3408,6 +3424,297 @@ def run_recsys_and_bandit(card):
     return out
 
 
+# Item 18, the contextual bandits: the reference's anchors
+# (tests/test_bandits.py), its UCI CB protocol (benchmarks/cb.py:66-253) and
+# the registry's LinUCB row (configs.py:822) at the runner's width.
+# final_avg_regret of JAX on the CPU at seed 0 (letter, T = 5000, 10 envs);
+# a uniform policy's is 25/26 = 0.962. The gate is loose: seeds 0-2 spread
+# over 0.18-0.58.
+CB_JAX_CPU = {"NeuralSquareCB": 0.264, "NeuralFastCB": 0.184, "NeuralLinUCB": 0.283,
+              "NeuralLinTS": 0.348}
+CB_GATE, CB_T, CB_ENVS = 0.75, 5_000, 10
+LINUCB_B, LINUCB_LPC, LINUCB_CALLS = 131_072, 16, 3
+
+
+def bandit_online(learner, env, steps, num_envs=16):
+    """`online_learning` of `learner` on `env` with a buffer sized to the
+    envs and a learn every step (tests/test_bandits.py:94-103). Returns the
+    learner bound to the env and the final learner state."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.training import online_learning
+
+    agent = PearlAgent(policy_learner=learner, replay_buffer=BasicReplayBuffer(capacity=num_envs))
+    res = online_learning(agent, env, num_envs=num_envs, max_steps=steps, learn_every_k_steps=1,
+                          seed=0)
+    return agent.for_env(env).policy_learner, res.agent_state.learner
+
+
+def check_bandit_steps_make_no_sync(card):
+    """One act, env step, observe and learn each of LinUCB (the synthetic
+    env, 16 envs), the CB benchmark's NeuralLinUCB and the disjoint linear
+    container (26 arms of 17 x 17 statistics, one batched factor), both on
+    letter at 10 envs, under the sync check, after one step outside it."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.benchmarks.cb import cb_benchmark_method
+    from pearl_tpu_torch.benchmarks.cb_datasets import get_dataset
+    from pearl_tpu_torch.envs import (
+        ClassificationBanditEnvironment, LinearSyntheticBanditEnvironment, VectorEnv,
+    )
+    from pearl_tpu_torch.policy_learners.contextual_bandits import (
+        DisjointLinearBandit, LinearBandit,
+    )
+    from pearl_tpu_torch.policy_learners.exploration_modules import UCBExploration
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.utils import make_generator
+
+    X, y, _ = get_dataset("letter")
+    letter = ClassificationBanditEnvironment(features=X, labels=y)
+    cases = [
+        ("linucb", PearlAgent(policy_learner=LinearBandit(exploration=UCBExploration(alpha=1.0)),
+                              replay_buffer=BasicReplayBuffer(16)),
+         LinearSyntheticBanditEnvironment(seed=3), 16),
+        ("neural linucb", cb_benchmark_method("NeuralLinUCB", X.shape[1], 26, CB_T), letter,
+         CB_ENVS),
+        ("disjoint linear", PearlAgent(policy_learner=DisjointLinearBandit(
+            exploration=UCBExploration(alpha=1.0)), replay_buffer=BasicReplayBuffer(CB_ENVS)),
+         letter, CB_ENVS),
+    ]
+    for name, agent, env, n in cases:
+        agent = agent.for_env(env)
+        venv = VectorEnv(env, n, torch.device(DEV))
+        gen = make_generator(0, DEV)
+        env_states, obs = venv.reset(gen)
+        astate = agent.init(0, venv.observation_dim, n, obs, device=DEV)
+
+        def step(astate, env_states):
+            astate, choice = agent.act(astate, gen)
+            env_states, result, next_obs = venv.step(env_states, choice.action, gen)
+            astate = agent.observe(astate, result, next_obs, gen)
+            astate, _ = agent.learn(astate, gen)
+            return astate, env_states
+
+        astate, env_states = step(astate, env_states)
+        no_sync(lambda: step(astate, env_states))
+        if name == "disjoint linear":
+            assert astate.learner.models.A.shape == (26, 17, 17)
+    print("an act, an env step, an observe and a learn of " + ", ".join(c[0] for c in cases)
+          + f" made no host sync on {card}", flush=True)
+
+
+def run_bandit_anchors(card):
+    """The reference's bandit tests on the card: LinUCB on the synthetic env
+    (seed 3, 16 envs, 4096 steps: greedy regret on 256 contexts below 0.1,
+    tests/test_bandits.py:108-122); UCB(alpha=40) disjoint arms on the
+    ten-times MAB (2048 steps: arm 3 greedily everywhere, :132-147); disjoint
+    linear arms on 4096 ground-truth rows (W to atol 0.02, :177-198); the
+    neural-linear sigmoid head in both placements (loss below 0.01 after 300
+    batches, :389-424); then the sync checks."""
+    from pearl_tpu_torch.api.spaces import DiscreteActionSpace
+    from pearl_tpu_torch.envs import (
+        LinearSyntheticBanditEnvironment, RewardIsTenTimesActionMABEnvironment,
+    )
+    from pearl_tpu_torch.neural_networks.contextual_bandit import LinearRegression
+    from pearl_tpu_torch.policy_learners.contextual_bandits import (
+        DisjointBanditContainer, LinearBandit, NeuralLinearBandit,
+    )
+    from pearl_tpu_torch.policy_learners.exploration_modules import UCBExploration
+    from pearl_tpu_torch.replay_buffers import TransitionBatch
+    from pearl_tpu_torch.utils import make_generator
+
+    out = {}
+    t0 = time.perf_counter()
+    env = LinearSyntheticBanditEnvironment(seed=3)
+    learner, lstate = bandit_online(LinearBandit(exploration=UCBExploration(alpha=1.0)), env,
+                                    4096)
+    gen = make_generator(42, DEV)
+    ctx = torch.rand((256, 4), generator=gen, device=DEV) * 2 - 1
+    _, choice = learner.act(lstate, ctx, None, gen, exploit=True)
+    means = env._mean_rewards(ctx)
+    regret = (means.max(1).values - means.gather(1, choice.index.long()[:, None])[:, 0]).mean()
+    out["linucb_regret"] = regret = regret.item()
+    out["linucb_s"] = time.perf_counter() - t0
+    assert regret < 0.1, regret
+    print(f"linucb anchor: greedy regret {regret:.6f} on 256 contexts (gate 0.1) after 4096 "
+          f"env steps at 16 envs, {out['linucb_s']:.1f} s on {card}", flush=True)
+
+    t0 = time.perf_counter()
+    mab = RewardIsTenTimesActionMABEnvironment(num_arms=4)
+    learner, lstate = bandit_online(DisjointBanditContainer(exploration=UCBExploration(
+        alpha=40.0)), mab, 2048)
+    _, choice = learner.act(lstate, torch.zeros((8, 1), device=DEV), None, gen, exploit=True)
+    picks = choice.index.tolist()
+    out["mab_s"] = time.perf_counter() - t0
+    assert picks == [3] * 8, picks
+    print(f"ten-times mab: the disjoint UCB arms pick {picks} greedily after 2048 env steps, "
+          f"{out['mab_s']:.1f} s on {card}", flush=True)
+
+    rng = np.random.RandomState(0)
+    n, arms, feat = 4096, 3, 4
+    W = rng.uniform(-1, 1, (arms, feat)).astype(np.float32)
+    states = rng.uniform(-1, 1, (n, feat)).astype(np.float32)
+    idx = rng.randint(0, arms, (n,)).astype(np.int32)
+    reward = np.einsum("nf,nf->n", states, W[idx]).astype(np.float32)
+
+    def put(x):
+        return torch.from_numpy(x).to(DEV)
+
+    batch = TransitionBatch(
+        state=put(states), action=put(idx[:, None].astype(np.float32)), reward=put(reward),
+        next_state=put(states), terminated=torch.ones(n, dtype=torch.bool, device=DEV),
+        truncated=torch.zeros(n, dtype=torch.bool, device=DEV), action_index=put(idx))
+    space = DiscreteActionSpace.discrete(arms)
+    container = DisjointBanditContainer(exploration=UCBExploration(alpha=0.0),
+                                        l2_reg_lambda=1e-4).bind(space)
+    cstate = container.init(None, feat, space, 8, DEV)
+    cstate, _ = container.learn_batch(cstate, batch)
+    coefs = LinearRegression(feature_dim=feat).coefs(cstate.models)[:, 1:].cpu().numpy()
+    out["disjoint_w_err"] = err = float(np.abs(coefs - W).max())
+    assert err <= 0.02, err
+    print(f"disjoint linear arms: W recovered to {err:.3e} (gate 0.02) from {n} rows on {card}",
+          flush=True)
+
+    w = torch.tensor([1.5, -2.0, 0.8, 0.0], device=DEV)
+    space = DiscreteActionSpace.create(torch.eye(2))
+    losses = {}
+    t0 = time.perf_counter()
+    for separate in (False, True):
+        nlb = NeuralLinearBandit(
+            exploration=UCBExploration(alpha=0.1), output_activation="sigmoid",
+            separate_uncertainty=separate, hidden_dims=(32,), linear_feature_dim=8,
+            learning_rate=3e-3, state_features_only=True).bind(space)
+        nstate = nlb.init(torch.Generator().manual_seed(0), 4, space, 1, DEV)
+        g = make_generator(3, DEV)
+        for _ in range(300):
+            x = torch.randn((64, 4), generator=g, device=DEV)
+            nbatch = TransitionBatch(
+                state=x, action=torch.zeros((64, 1), device=DEV), reward=torch.sigmoid(x @ w),
+                next_state=x, terminated=torch.ones(64, dtype=torch.bool, device=DEV),
+                truncated=torch.zeros(64, dtype=torch.bool, device=DEV),
+                action_index=torch.zeros(64, dtype=torch.int32, device=DEV))
+            nstate, metrics = nlb.learn_batch(nstate, nbatch)
+        losses["separate" if separate else "joint"] = metrics["loss"].item()
+    out["sigmoid_head_loss"] = losses
+    out["sigmoid_head_s"] = time.perf_counter() - t0
+    assert max(losses.values()) < 0.01, losses
+    print(f"neural-linear sigmoid head: loss after 300 batches joint {losses['joint']:.6f}, "
+          f"separate {losses['separate']:.6f} (gate 0.01), {out['sigmoid_head_s']:.1f} s on "
+          f"{card}", flush=True)
+    check_bandit_steps_make_no_sync(card)
+    return out
+
+
+def run_cb_benchmark(card):
+    """The reference's UCI CB protocol on its widest dataset: every CB method
+    on letter (20000 rows, 16 features, 26 classes: 5-bit actions, hidden
+    (64, 16), SquareCB gamma 10 sqrt(T * 21)), T = 5000 over 10 envs at seed
+    0, each method's final_avg_regret below CB_GATE beside JAX's on the CPU,
+    with its interactions/s and the device kernels of one act and one learn
+    of its agent; then the reference test's yeast cell (NeuralSquareCB,
+    T = 1500, below 0.5; test_cb_benchmark.py:47-56) and the offline
+    protocol on satimage (below 0.4, :60-64)."""
+    from pearl_tpu_torch.benchmarks.cb import (
+        CB_METHODS, cb_benchmark_method, run_cb_benchmark_suite, run_offline_cb_experiment,
+    )
+    from pearl_tpu_torch.benchmarks.cb_datasets import get_dataset
+    from pearl_tpu_torch.envs import ClassificationBanditEnvironment, VectorEnv
+    from pearl_tpu_torch.utils import make_generator
+
+    out = {}
+    X, y, _ = get_dataset("letter")
+    letter = ClassificationBanditEnvironment(features=X, labels=y)
+    for method in CB_METHODS:
+        t0 = time.perf_counter()
+        res = run_cb_benchmark_suite(datasets=("letter",), methods=(method,), T=CB_T,
+                                     num_envs=CB_ENVS, seed=0)
+        seconds = time.perf_counter() - t0
+        regret = res["letter"][method]["final_avg_regret"]
+        # The device kernels of one act and of one learn, after 32 steps.
+        agent = cb_benchmark_method(method, X.shape[1], 26, CB_T).for_env(letter)
+        venv = VectorEnv(letter, CB_ENVS, torch.device(DEV))
+        gen = make_generator(0, DEV)
+        env_states, obs = venv.reset(gen)
+        astate = agent.init(0, venv.observation_dim, CB_ENVS, obs, device=DEV)
+        for _ in range(32):
+            astate, choice = agent.act(astate, gen)
+            env_states, result, next_obs = venv.step(env_states, choice.action, gen)
+            astate = agent.observe(astate, result, next_obs, gen)
+        per_act = kernels_per_call(lambda: agent.act(astate, gen))
+        per_learn = kernels_per_call(lambda: agent.learn(astate, gen))
+        out[method] = {"final_avg_regret": regret, "seconds": seconds,
+                       "interactions_per_s": CB_T / seconds, "kernels_per_act": per_act,
+                       "kernels_per_learn": per_learn}
+        print(f"cb letter {method}: final_avg_regret {regret:.4f} (gate {CB_GATE}; JAX on the "
+              f"CPU at seed 0 {CB_JAX_CPU[method]}; uniform 0.962), {CB_T} interactions in "
+              f"{seconds:.1f} s = {CB_T / seconds:.1f} interactions/s, {per_act:.1f} device "
+              f"kernels per act, {per_learn:.1f} per learn on {card}", flush=True)
+        assert regret < CB_GATE, (method, regret)
+    t0 = time.perf_counter()
+    res = run_cb_benchmark_suite(datasets=("yeast",), methods=("NeuralSquareCB",), T=1500,
+                                 num_envs=CB_ENVS)
+    yeast = res["yeast"]["NeuralSquareCB"]["final_avg_regret"]
+    seconds = time.perf_counter() - t0
+    print(f"cb yeast NeuralSquareCB (T = 1500): final_avg_regret {yeast:.4f} (gate 0.5), "
+          f"{seconds:.1f} s on {card}", flush=True)
+    assert yeast < 0.5, yeast
+    t0 = time.perf_counter()
+    offline = run_offline_cb_experiment("satimage", T=4000, train_batches=400,
+                                        num_eval_steps=100)["final_avg_regret"]
+    seconds_offline = time.perf_counter() - t0
+    print(f"cb offline satimage (4000 logged, 400 batches, 100 greedy steps): final_avg_regret "
+          f"{offline:.4f} (gate 0.4), {seconds_offline:.1f} s on {card}", flush=True)
+    assert offline < 0.4, offline
+    out.update(yeast=yeast, offline_satimage=offline)
+    return out
+
+
+def run_linucb_runner(card):
+    """The registry's LinUCB row (configs.py:822: UCB alpha 1) on the
+    synthetic env through `make_compiled_runner` at 131072 envs, with the
+    buffer sized to the envs and a learn at every step
+    (linear_bandit.py:111-121), 16 learns a call: a warm-up call, timed
+    calls, one under the sync check, a profiled call (the idle share) and
+    the device kernels of one env step and of one learn. The mean regret of
+    the last call must fall below the first's."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import LinearSyntheticBanditEnvironment
+    from pearl_tpu_torch.policy_learners.contextual_bandits import LinearBandit
+    from pearl_tpu_torch.policy_learners.exploration_modules import UCBExploration
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+
+    env = LinearSyntheticBanditEnvironment()
+    agent = PearlAgent(policy_learner=LinearBandit(exploration=UCBExploration(alpha=1.0)),
+                       replay_buffer=BasicReplayBuffer(capacity=LINUCB_B))
+    runner = env_runner(agent, env, LINUCB_B, 1, LINUCB_LPC)
+    per_call = LINUCB_B * LINUCB_LPC
+    warm, stats = timed_call(runner, per_call)
+    regrets = [stats["regret_sum"].item() / per_call]
+    print(f"linucb runner warm-up call: {per_call / warm:.3f} s, mean regret {regrets[0]:.6f}",
+          flush=True)
+    rates = []
+    for _ in range(LINUCB_CALLS):
+        rate, stats = timed_call(runner, per_call)
+        rates.append(rate)
+        regrets.append(stats["regret_sum"].item() / per_call)
+    run_fn, astate, env_states, gen, _ = runner
+    astate, env_states, stats = no_sync(lambda: run_fn(astate, env_states, gen))
+    regrets.append(stats["regret_sum"].item() / per_call)
+    assert astate.replay.size == 0 and math.isfinite(regrets[-1])
+    wall_s = per_call / statistics.mean(rates)
+    prof = profile_fn(lambda: run_fn(astate, env_states, gen), wall_s, unit="linucb call")
+    per_step, per_learn, _, _, astate, env_states = kernels_per_step_and_learn(
+        agent, env, astate, env_states, gen, LINUCB_B, step_windows=SHORT_STEPS,
+        learn_windows=SHORT_LEARNS)
+    print(f"linucb runner ({LINUCB_B} envs, a learn every step, {LINUCB_LPC} learns a call): "
+          f"warm-up {warm:.1f}, then env-steps/s " + ", ".join(f"{r:.1f}" for r in rates)
+          + f"; mean regret a call, first to last (the last under the sync check) "
+          + ", ".join(f"{r:.6f}" for r in regrets) + f"; {per_step:.1f} device kernels per env "
+          f"step, {per_learn:.1f} per learn on {card}", flush=True)
+    assert regrets[-1] < regrets[0], regrets
+    return {"rates": rates, "warm_up": warm, "regrets": regrets, "profile": prof,
+            "kernels_per_step": per_step, "kernels_per_learn": per_learn}
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -3620,6 +3927,18 @@ def main() -> int:
     t0 = time.perf_counter()
     run_recsys_and_bandit(card)
     phase("recommender and bandit", t0)
+
+    t0 = time.perf_counter()
+    run_bandit_anchors(card)
+    phase("bandit anchors", t0)
+
+    t0 = time.perf_counter()
+    run_cb_benchmark(card)
+    phase("cb benchmark", t0)
+
+    t0 = time.perf_counter()
+    run_linucb_runner(card)
+    phase("linucb runner", t0)
 
     act = timing[ACT_SHAPE[0]]
     kernels = [{

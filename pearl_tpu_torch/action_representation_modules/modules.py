@@ -1,5 +1,6 @@
 """Action representation modules (port of
-`pearl_tpu/action_representation_modules/modules.py`: identity and one-hot).
+`pearl_tpu/action_representation_modules/modules.py`: identity, one-hot
+and binary).
 
 Both are fixed, parameterless transforms of the raw stored action vectors
 (for gym-style discrete spaces, length-1 index vectors).
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import math
 
 import torch
 
@@ -66,3 +68,33 @@ class OneHotActionRepresentation(ActionRepresentationModule):
     def representation_dim(self, action_dim, max_number_actions):
         del action_dim
         return self.max_number_actions or max_number_actions
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryActionRepresentation(ActionRepresentationModule):
+    """The bits of the action index, least significant first, as float32:
+    `bits` of them (8 when left 0 and not resolved)."""
+
+    bits: int = 0
+
+    def resolve(self, action_dim, max_number_actions):
+        if action_dim != 1:
+            raise ValueError(
+                "BinaryActionRepresentation bit-encodes the stored action "
+                "value, which is only meaningful for index-valued action "
+                f"spaces (action_dim=1); this space has action_dim="
+                f"{action_dim}. Use IdentityActionRepresentation instead."
+            )
+        if self.bits:
+            return self
+        nbits = max(1, math.ceil(math.log2(max(max_number_actions, 2))))
+        return dataclasses.replace(self, bits=nbits)
+
+    def apply(self, action):
+        idx = action[..., 0].to(torch.int32)
+        shifts = torch.arange(self.bits or 8, dtype=torch.int32, device=action.device)
+        return ((idx[..., None] >> shifts) & 1).to(torch.float32)
+
+    def representation_dim(self, action_dim, max_number_actions):
+        del action_dim
+        return self.bits or 8

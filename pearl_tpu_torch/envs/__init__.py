@@ -1,3 +1,10 @@
+from pearl_tpu_torch.envs.bandit import (
+    CBState,
+    ClassificationBanditEnvironment,
+    LinearSyntheticBanditEnvironment,
+    RewardIsTenTimesActionMABEnvironment,
+    SLCBState,
+)
 from pearl_tpu_torch.envs.breakout import Breakout, BreakoutState
 from pearl_tpu_torch.envs.cartpole import CartPole, CartPoleState
 from pearl_tpu_torch.envs.classic import (
@@ -50,10 +57,12 @@ __all__ = [
     "AcrobotState",
     "Breakout",
     "BreakoutState",
+    "CBState",
     "CartPole",
     "CartPoleState",
     "Catcher",
     "CatcherState",
+    "ClassificationBanditEnvironment",
     "ContinuousMountainCar",
     "ContinuousSparseRewardEnvironment",
     "DiscreteSparseRewardEnvironment",
@@ -66,6 +75,7 @@ __all__ = [
     "FlattenObservations",
     "FrozenLake",
     "FrozenLakeState",
+    "LinearSyntheticBanditEnvironment",
     "MeanVarBanditEnvironment",
     "MountainCar",
     "MountainCarState",
@@ -81,6 +91,8 @@ __all__ = [
     "PuckWorldState",
     "RecSysState",
     "RecommenderEnvironment",
+    "RewardIsTenTimesActionMABEnvironment",
+    "SLCBState",
     "SafetyWrapper",
     "SafetyWrapperState",
     "SparseRewardState",

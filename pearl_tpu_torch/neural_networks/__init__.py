@@ -5,7 +5,13 @@ from pearl_tpu_torch.neural_networks.actor_networks import (
     VanillaActorNetwork,
     VanillaContinuousActorNetwork,
 )
-from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, select_index_last
+from pearl_tpu_torch.neural_networks.common import (
+    ACTIVATIONS,
+    MLP,
+    ConvNet,
+    resolve_activation,
+    select_index_last,
+)
 from pearl_tpu_torch.neural_networks.epistemic import Epinet, MLPWithPrior
 from pearl_tpu_torch.neural_networks.q_value_networks import (
     CNNQValueNetwork,
@@ -20,8 +26,10 @@ from pearl_tpu_torch.neural_networks.twin_critic import CNNTwinCritic, TwinCriti
 from pearl_tpu_torch.neural_networks.value_networks import CNNValueNetwork, VanillaValueNetwork
 
 __all__ = [
+    "ACTIVATIONS",
     "MLP",
     "ConvNet",
+    "resolve_activation",
     "select_index_last",
     "CNNActorNetwork",
     "CNNQValueNetwork",

@@ -1,21 +1,47 @@
 """Common NN building blocks (port of `pearl_tpu/neural_networks/common.py`).
 
-Only what the ported paths use: the relu MLP with an optional last
-activation (no layer norm, dropout or skip connections), the conv feature
+Only what the ported paths use: the activation table with
+`resolve_activation`, the relu MLP with an optional last activation (no
+layer norm, dropout or skip connections), the conv feature
 stack `ConvNet`, `nchw_images`, `select_index_last`, and the two
 initializers of flax's `Dense` and `Conv` layers.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
-ACTIVATIONS = {"relu": F.relu, "tanh": torch.tanh}
+def _normalized_softplus(x: torch.Tensor) -> torch.Tensor:
+    """softplus(x) / log(2), which is 1 at x = 0."""
+    return F.softplus(x) / math.log(2.0)
+
+
+# The JAX package's table, by name: flax's `gelu` is the tanh approximation
+# and its `leaky_relu` has slope 0.01.
+ACTIVATIONS = {
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "leaky_relu": F.leaky_relu,
+    "softplus": F.softplus,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "elu": F.elu,
+    "linear": lambda x: x,
+    "normalized_softplus": _normalized_softplus,
+}
+
+
+def resolve_activation(act) -> Callable[[torch.Tensor], torch.Tensor]:
+    """An activation given by its name in `ACTIVATIONS` or as a callable."""
+    if callable(act):
+        return act
+    return ACTIVATIONS[act]
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
@@ -42,9 +68,9 @@ def dense(d_in: int, d_out: int, generator=None, xavier: bool = True) -> nn.Line
 
 class MLP(nn.Module):
     """relu hiddens `dense_0 ... dense_{n-1}`, linear `dense_out` followed by
-    `last_activation` ("relu", "tanh" or None), xavier-uniform weights and
-    zero biases — the reference `MLP`'s defaults. Layer names match the flax
-    param dict so weights carry across by name."""
+    `last_activation` (a name of `ACTIVATIONS` or None), xavier-uniform
+    weights and zero biases — the reference `MLP`'s defaults. Layer names
+    match the flax param dict so weights carry across by name."""
 
     def __init__(
         self,

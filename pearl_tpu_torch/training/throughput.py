@@ -43,7 +43,8 @@ def make_compiled_runner(
     run_fn(agent_state, env_states, generator)
         -> (agent_state, env_states, {"reward_sum", "episodes"}); executes
         steps_per_learn * learns_per_call * num_envs env steps. `generator`
-        is a `torch.Generator` on the device.
+        is a `torch.Generator` on the device. An env that reports
+        `info["regret"]` (the contextual bandits) adds "regret_sum".
     """
     device = resolve_device(device)
     deferred_push = bool(deferred_push)
@@ -63,6 +64,7 @@ def make_compiled_runner(
     def run_fn(agent_state, env_states, generator: torch.Generator):
         reward_sum = torch.zeros((), device=device)
         episodes = torch.zeros((), dtype=torch.int64, device=device)
+        regret_sum = None
         for _ in range(learns_per_call):
             transitions = []
             for _ in range(steps_per_learn):
@@ -77,12 +79,18 @@ def make_compiled_runner(
                     agent_state = agent.observe(agent_state, result, next_obs, generator)
                 reward_sum += result.reward.sum()
                 episodes += result.done.sum()
+                if "regret" in result.info:
+                    regret = result.info["regret"].sum()
+                    regret_sum = regret if regret_sum is None else regret_sum + regret
             if deferred_push:
                 flat = tree_map(lambda *xs: torch.cat(xs), *transitions)
                 replay = agent.replay_buffer.push(agent_state.replay, flat, generator)
                 agent_state = dataclasses.replace(agent_state, replay=replay)
             if learn:
                 agent_state, _ = agent.learn(agent_state, generator)
-        return agent_state, env_states, {"reward_sum": reward_sum, "episodes": episodes}
+        stats = {"reward_sum": reward_sum, "episodes": episodes}
+        if regret_sum is not None:
+            stats["regret_sum"] = regret_sum
+        return agent_state, env_states, stats
 
     return init_fn, run_fn

@@ -51,6 +51,12 @@ per layer, `{"LSTMCell_k": {"ii", "if", "ig", "io": {kernel (in, H)},
 
 `recommender_env_from_jax` builds the port's recommender env from a JAX
 env's catalog and user-model arrays.
+
+The contextual bandits: `load_flax_linreg_state` (A, b, sum_weight,
+weight_since_discount), a `NeuralBandit`'s MLP through `load_flax_mlp`,
+`load_flax_neural_linear_state` (`{"mlp", "head", "linreg"}`) and
+`load_flax_disjoint_models` (the container's stacked arm states; neural arms
+through `load_flax_stacked_mlp`).
 """
 
 from __future__ import annotations
@@ -445,3 +451,62 @@ def recommender_env_from_jax(jax_env, device) -> "RecommenderEnvironment":
         slate_size=int(jax_env.slate_size), episode_length=int(jax_env.episode_length),
         history_length=int(jax_env.history_length), logit_scale=float(jax_env.logit_scale),
     )
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def load_flax_linreg_state(params, device=None) -> "LinearRegressionState":
+    """The port's `LinearRegressionState` from a JAX one (a struct or a
+    mapping with A, b, sum_weight and weight_since_discount; leading arm
+    axes kept), on `device`, in the port's float64."""
+    from pearl_tpu_torch.neural_networks.contextual_bandit import (
+        STATS_DTYPE,
+        LinearRegressionState,
+    )
+
+    return LinearRegressionState(**{
+        name: _np(_field(params, name)).to(device, STATS_DTYPE)
+        for name in ("A", "b", "sum_weight", "weight_since_discount")
+    })
+
+
+def load_flax_neural_linear_state(state, params: Mapping):
+    """Load a `NeuralLinearBandit` state's weights and statistics, given as
+    `{"mlp", "head", "linreg"}` (the JAX state's `mlp_params`,
+    `head_params` and `linreg`), into the port's state: the MLP and head in
+    place, the statistics replaced. Returns the state."""
+    import dataclasses
+
+    _check_keys(params, ("mlp", "head", "linreg"))
+    load_flax_mlp(state.mlp_params, params["mlp"])
+    load_flax_mlp(state.head_params, params["head"])
+    linreg = load_flax_linreg_state(params["linreg"], state.linreg.A.device)
+    return dataclasses.replace(state, linreg=linreg)
+
+
+def load_flax_disjoint_models(learner, state, models):
+    """Load a `DisjointBanditContainer`'s stacked arm states from the JAX
+    container's `state.models`: a linear stack's statistics (leading arm
+    axis), a neural stack's `{"params": <MLP tree with a leading arm axis>,
+    ...}` into its `StackedMLP` (`load_flax_stacked_mlp`; the optimizer
+    stays fresh); with heterogeneous arms a tuple, one entry a group, in the
+    container's group order. Returns the state."""
+    import dataclasses
+
+    from pearl_tpu_torch.policy_learners.contextual_bandits import NeuralBandit
+
+    def load_group(arm_learner, ours, theirs):
+        if isinstance(arm_learner, NeuralBandit):
+            load_flax_stacked_mlp(ours.params, theirs["params"])
+            return ours
+        return load_flax_linreg_state(theirs, ours.A.device)
+
+    if learner._heterogeneous:
+        groups = [arm_learner for arm_learner, _ in learner._groups()]
+        loaded = tuple(load_group(g, ours, theirs)
+                       for g, ours, theirs in zip(groups, state.models, models))
+    else:
+        loaded = load_group(learner.arm_learner, state.models, models)
+    return dataclasses.replace(state, models=loaded)

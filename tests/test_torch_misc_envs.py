@@ -323,12 +323,10 @@ def test_recommender_create_draws_its_own_catalog():
 
 # ---------------------------------------------------------------- exports
 def test_port_exports_every_on_device_env_and_wrapper_of_the_jax_package():
-    """Every name of pearl_tpu.envs but the contextual bandits (item 18)."""
-    bandits = {"LinearSyntheticBanditEnvironment", "RewardIsTenTimesActionMABEnvironment",
-               "ClassificationBanditEnvironment"}
-    missing = set(jax_envs.__all__) - bandits - set(port_envs.__all__)
+    """Every name of pearl_tpu.envs."""
+    missing = set(jax_envs.__all__) - set(port_envs.__all__)
     assert not missing, missing
-    for name in set(jax_envs.__all__) - bandits:
+    for name in jax_envs.__all__:
         assert hasattr(port_envs, name), name
 
 

@@ -16,8 +16,10 @@ the remaining envs (see ENV_ANCHORS): DQN on FrozenLake
 on FrozenLake (tests/test_misc_components.py:51-75, its greedy table reaches
 the goal), DQN on Catcher (tests/test_ple_envs.py:175-202), DQN on the
 recommender (tests/test_recsys.py:57-80) and QR-DQN on the mean-variance
-bandit (tests/test_risk_sensitive_and_transformer.py:22-59). Not collected by
-pytest; run it:
+bandit (tests/test_risk_sensitive_and_transformer.py:22-59); and the
+reference's UCI CB suite (`--env cb_suite`: every CB method on every dataset,
+T = 5000 over 10 envs, benchmarks/cb.py's `run_cb_benchmark_suite`; the
+final_avg_regret of each cell). Not collected by pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
@@ -33,6 +35,7 @@ pytest; run it:
     python tests/torch_port_convergence.py --package torch --env frozen_lake --learner tabular_q
     python tests/torch_port_convergence.py --package torch --env mean_var_bandit \
         --learner qrdqn_mean_variance --seeds 0
+    python tests/torch_port_convergence.py --package torch --env cb_suite --seeds 0 1 2
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -540,30 +543,54 @@ def run(package, env_name, learner_name, seed, device):
     )
 
 
+# The CB suite runs its four methods together (benchmarks/cb.py's CB_METHODS).
+CB_LEARNERS = ("cb_methods",)
+
+
+def run_cb_suite(package, seed, device):
+    """Every CB method on every dataset at the reference's T = 5000 over 10
+    envs: {dataset: {method: final_avg_regret}} and the seconds of each
+    dataset."""
+    root = "pearl_tpu" if package == "jax" else "pearl_tpu_torch"
+    _modules(package)  # JAX on the CPU, the port's thread count
+    cb = importlib.import_module(f"{root}.benchmarks.cb")
+    kwargs = {} if package == "jax" else {"device": device}
+    regrets, seconds = {}, {}
+    for ds in cb.CB_DATASETS:
+        t0 = time.perf_counter()
+        res = cb.run_cb_benchmark_suite(datasets=(ds,), T=5_000, num_envs=10, seed=seed,
+                                        **kwargs)
+        seconds[ds] = round(time.perf_counter() - t0, 1)
+        regrets[ds] = {m: round(res[ds][m]["final_avg_regret"], 4) for m in cb.CB_METHODS}
+    return {"final_avg_regret": regrets, "seconds": seconds}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
     parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach",
-                                          "partial_cartpole", "offline", "rc_pendulum")
+                                          "partial_cartpole", "offline", "rc_pendulum",
+                                          "cb_suite")
                         + tuple(ENV_ANCHORS), default="cartpole")
     env_learners = tuple(x for names, _ in ENV_ANCHORS.values() for x in names)
     parser.add_argument("--learner", choices=tuple(dict.fromkeys(
                             tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
                             + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS) + OFFLINE_LEARNERS
-                            + RC_LEARNERS + env_learners)),
+                            + RC_LEARNERS + CB_LEARNERS + env_learners)),
                         help="dqn, dueling, qrdqn, sarsa, double, cql, sac, ppo or reinforce "
                         "on CartPole (default dqn); csac, "
                         "ddpg or td3 on Pendulum (default csac); her on sparse_reach; "
                         "lstm_dqn or transformer_dqn on partial_cartpole; iql or offline_cql "
                         "on offline; rccsac on rc_pendulum; dqn or tabular_q on frozen_lake; "
                         "dqn on catcher and recsys; qrdqn_risk_neutral or qrdqn_mean_variance "
-                        "on mean_var_bandit")
+                        "on mean_var_bandit; cb_methods (all four) on cb_suite")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     args = parser.parse_args()
     learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
                 "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS,
                 "offline": OFFLINE_LEARNERS, "rc_pendulum": RC_LEARNERS,
+                "cb_suite": CB_LEARNERS,
                 **{name: names for name, (names, _) in ENV_ANCHORS.items()}}[args.env]
     if args.learner is None:
         args.learner = next(iter(learners))
@@ -577,11 +604,12 @@ def main():
                               "seed": seed, "reference_seed": ENV_ANCHORS[args.env][1][
                                   args.learner], **numbers}), flush=True)
             continue
-        if args.env in ("offline", "rc_pendulum"):
-            numbers = (
-                run_offline(args.package, args.learner, seed, args.device)
-                if args.env == "offline" else run_rc(args.package, seed, args.device)
-            )
+        if args.env in ("offline", "rc_pendulum", "cb_suite"):
+            numbers = {"offline": lambda: run_offline(args.package, args.learner, seed,
+                                                      args.device),
+                       "rc_pendulum": lambda: run_rc(args.package, seed, args.device),
+                       "cb_suite": lambda: run_cb_suite(args.package, seed, args.device),
+                       }[args.env]()
             print(json.dumps({"package": args.package, "env": args.env,
                               "learner": args.learner, "seed": seed, **numbers}), flush=True)
             continue
