@@ -47,10 +47,11 @@ Phases, each printing its seconds:
      ones, the rollout buffer full before and empty after every learn, a
      profiled call and the device kernels of one env step and of one learn;
  11. ppo learning: `online_learning` with PPO must reach CartPole 500, in
-     a child process started after phase 8 and waited for after phases 5,
-     9, 28 and 20, which run then, in that order (host-bound learning
-     anchors that report no rate, side by side with it; phase 10 and every
-     later rate wait for the child);
+     a child process started after phase 8 (which then runs phase 39's
+     learning check) and waited for after phases 5, 9, 28 and 20, which run
+     then, in that order (host-bound learning anchors that report no rate,
+     side by side with it and with phase 44's ranks; phase 10 and every
+     later rate wait for the children);
  12. discrete actor-critic: discrete SAC at 1024 CartPole envs through the
      runner, with one act, env step, observe and learn that must make no
      host sync; then one learn each of REINFORCE and PPO with the CNN actor
@@ -166,7 +167,8 @@ Phases, each printing its seconds:
      the timed dispatches' wall), then the solo summary driver, 2 timed
      population dispatches and the solo driver again, B1 at 512 tiled + 128
      rows a member and dispatch; the reference's 4-member learning check
-     (16 envs, 40000 steps each);
+     (16 envs, 40000 steps each) in phase 11's child after PPO's anchor,
+     its population saved for phase 41;
  40. host loops: the multi-head DQN through `agent_online_learning_host`
      on CartPole, one env (steps/s, host syncs a step, B1 at B = 1 in every
      act), and the Atari topology of examples/atari_dqn.py on SyntheticAtari
@@ -175,11 +177,33 @@ Phases, each printing its seconds:
      and round-tripped through `save`/`restore` with its CUDA generators,
      the population's states, and a conv1-cache agent whose restored cache
      equals a refresh; B1, B2, B3, B6b and B7 counted over the rows.
+ 42. dp world-1: `online_learning(mesh=make_mesh(1))` (NCCL, a world of one
+     in this process; the path each rank takes with a card of its own) with
+     the headline agent at its width, one dispatch, bit-equal to phase 13's
+     solo warm-up run at the same seed (whole states, return curve), B1 at
+     512 tiled + 128 rows; one more dispatch timed alone and one under the
+     sync check (the fetch excluded) and profiled (the idle share);
+ 43. dp two ranks: two processes on cuda:0 joined by gloo (NCCL refuses two
+     ranks on one card), 65536 envs each (131072 in all):
+     `online_learning(mesh=..., check_replication=True)`, a warm-up dispatch
+     and 2 timed ones with the replicas byte for byte equal after each, the
+     folded statistics the same on both ranks, the env shards different, B1
+     at 512 tiled + 128 rows a rank and dispatch; then `DataParallelRunner`
+     and learns timed alone (host time a learn, gloo all-reduce included):
+     a correctness run, its rates no scaling number;
+ 44. mesh anchor: test_convergence.py:289-316 (DQN to CartPole 500 on 16
+     envs over 2 ranks, gloo on cuda:0), replicas equal at the end (spread
+     0), in two child processes started beside phase 11's (rank processes
+     load the kernels phase 2 built; none builds);
+ 45. ensemble: the registry's BootstrappedDQN (K = 10, batch 128) on a
+     (1, 2) mesh of the same two ranks as phase 43, each holding 5 members:
+     3 sharded learns equal the unsharded learn within rtol 1e-5 / atol 1e-6.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
  13-15, 17-18, 27, 29, 31 and 39 reach B1 as the runner does, 16 and 40
  through their multi-head DQNs, 41 through the registry's MultiHeadDQN row
- (and B2, B7, B3, B6b through its VisualDQN row); 19-21, 23-26, 28, 30 and
- 32-38 run plain PyTorch products
+ (and B2, B7, B3, B6b through its VisualDQN row), 42 and 43 as the driver
+ does (43 on each rank); 19-21, 23-26, 28, 30, 32-38, 44 and 45 run plain
+ PyTorch products
  (36-38: matrix products and small Cholesky solves),
  cuDNN's convolutions and LSTM (the reference's are flax stacks that XLA
  computes); 22's control runner reaches B7, B3 and B6b as phase 6 does.
@@ -1549,21 +1573,26 @@ def run_ppo_learning(card):
 
 
 def start_ppo_learning():
-    """`run_ppo_learning` in a child process (this script imported from its
-    own directory), its output kept for `finish_ppo_learning`."""
+    """`run_ppo_learning` and then phase 39's learning check
+    (`run_population_learning`) in one child process (this script imported
+    from its own directory), its output kept for `finish_ppo_learning`."""
     here = os.path.dirname(os.path.abspath(__file__))
+    if os.path.exists(_population_learning_file()):
+        os.unlink(_population_learning_file())
     return subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke as c; c.run_ppo_learning(c.card_line())"],
+        [sys.executable, "-c", "import chip_smoke as c; card = c.card_line(); "
+         "c.run_ppo_learning(card); c.run_population_learning(card)"],
         cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
 
 
 def finish_ppo_learning(child, timeout_s=900):
-    """Wait for `start_ppo_learning`'s child, print its output, and fail if
-    it failed."""
+    """Wait for `start_ppo_learning`'s child, print its output, fail if it
+    failed, and return the learning population it saved."""
     out, _ = child.communicate(timeout=timeout_s)
     print(out.rstrip(), flush=True)
-    assert child.returncode == 0, f"ppo learning failed (exit code {child.returncode})"
+    assert child.returncode == 0, f"ppo or population learning failed ({child.returncode})"
+    return torch.load(_population_learning_file(), weights_only=False)
 
 
 def run_discrete_actor_critic(card):
@@ -1722,31 +1751,37 @@ def timed_driver(agent, dispatches, seed, cpd=DRV_CPD, **kw):
     return res, wall
 
 
-def driver_dispatcher(agent, astate, env_states, stats, deferred_push=False, seed=0):
+def driver_dispatcher(agent, astate, env_states, stats, deferred_push=False, seed=0, mesh=None):
     """One more dispatch of the headline driver, continuing from `astate`:
     the driver's own chunk program and device accounting, without the host
-    fetch that `online_learning` makes after it. Returns dispatch() -> the
+    fetch that `online_learning` makes after it. With a `mesh`, a rank's
+    share of the envs, the learner averaging over the mesh's `data` axis and
+    the statistics folded over it (an all-reduce), as
+    `online_learning(mesh=...)` runs them. Returns dispatch() -> the
     dispatch's statistics tensor, left on the card."""
     from pearl_tpu_torch.envs import CartPole, VectorEnv
+    from pearl_tpu_torch.parallel.data_parallel import with_pmean_axis
     from pearl_tpu_torch.training import online as online_mod
     from pearl_tpu_torch.utils import make_generator
 
-    dev = torch.device("cuda")
+    axis = None if mesh is None else mesh.axis("data")
+    dev = torch.device("cuda") if axis is None else axis.device
+    B = DRV_B if axis is None else DRV_B // axis.size
     env = CartPole()
-    bound = agent.for_env(env)
-    accounting = (online_mod._CurveStats(DRV_B, dev, DRV_B) if stats == "curves"
+    bound = (agent if axis is None else with_pmean_axis(agent, axis)).for_env(env)
+    accounting = (online_mod._CurveStats(B, dev, B) if stats == "curves"
                   else {"summary": online_mod._SummaryStats,
-                        "full": online_mod._FullStats}[stats](DRV_B, dev))
-    chunk = online_mod._make_chunk_fn(bound, VectorEnv(env, DRV_B, dev), DRV_SPL, True, False,
+                        "full": online_mod._FullStats}[stats](B, dev))
+    chunk = online_mod._make_chunk_fn(bound, VectorEnv(env, B, dev), DRV_SPL, True, False,
                                       DRV_CPD, accounting, deferred_push)
     gen = make_generator(seed, dev)
-    box = {"carry": (astate, env_states, torch.zeros(DRV_B, device=dev),
-                     tuple(torch.zeros(DRV_B, device=dev) for _ in range(3)))}
+    box = {"carry": (astate, env_states, torch.zeros(B, device=dev),
+                     tuple(torch.zeros(B, device=dev) for _ in range(3)))}
 
     def dispatch():
         *carry, stats_dev = chunk(*box["carry"], gen)
         box["carry"] = tuple(carry)
-        return stats_dev
+        return stats_dev if axis is None else online_mod._fold_stats(stats_dev, stats, axis)
 
     return dispatch
 
@@ -1769,7 +1804,8 @@ def run_driver(card):
     counted over the timed run; then one more dispatch timed alone, one
     under the sync check and one profiled (the idle share)."""
     agent = headline_agent()
-    res, wall = timed_driver(agent, 1, seed=0, stats="summary")
+    warm, wall = timed_driver(agent, 1, seed=0, stats="summary")
+    warm_wall = wall
     print(f"driver warm-up (1 dispatch, set-up included): {wall:.3f} s", flush=True)
     reset_fused_counts()
     res, wall = timed_driver(agent, DRV_TIMED, seed=1, stats="summary")
@@ -1794,7 +1830,8 @@ def run_driver(card):
     prof = profile_fn(dispatch, dispatch_s, unit="summary dispatch")
     print(f"driver: one dispatch {dispatch_s:.3f} s alone ({DRV_B * DRV_SPL * DRV_CPD / dispatch_s:.1f}"
           f" env-steps/s); one dispatch made no host sync on {card}", flush=True)
-    return {"sps": sps, "counts": counts, "profile": prof, "dispatch_s": dispatch_s}
+    return {"sps": sps, "counts": counts, "profile": prof, "dispatch_s": dispatch_s,
+            "warm_up": warm, "warm_up_wall": warm_wall}
 
 
 def run_curves(card):
@@ -3834,30 +3871,10 @@ def population_dispatcher(agent, pop):
     member's chunks in turn and the stack of their summary rows, as
     `population_learning` runs them, without its host fetch. Returns
     dispatch() -> the (M, C, 6) rows, left on the card."""
-    from pearl_tpu_torch.envs import CartPole, VectorEnv
-    from pearl_tpu_torch.training import online as online_mod
-    from pearl_tpu_torch.utils import make_generator
-
-    dev = torch.device("cuda")
-    env = CartPole()
-    bound, venv = agent.for_env(env), VectorEnv(env, DRV_B, dev)
-    members = []
-    for m in range(pop.num_members):
-        chunk = online_mod._make_chunk_fn(bound, venv, DRV_SPL, True, False, DRV_CPD,
-                                          online_mod._SummaryStats(DRV_B, dev), False)
-        carry = (pop.agent_states[m], pop.env_states[m], torch.zeros(DRV_B, device=dev),
-                 tuple(torch.zeros(DRV_B, device=dev) for _ in range(3)))
-        members.append({"chunk": chunk, "carry": carry, "gen": make_generator(100 + m, dev)})
-
-    def dispatch():
-        rows = []
-        for member in members:
-            *carry, stats_dev = member["chunk"](*member["carry"], member["gen"])
-            member["carry"] = tuple(carry)
-            rows.append(stats_dev)
-        return torch.stack(rows)
-
-    return dispatch
+    members = [driver_dispatcher(agent, pop.agent_states[m], pop.env_states[m], "summary",
+                                 seed=100 + m)
+               for m in range(pop.num_members)]
+    return lambda: torch.stack([member() for member in members])
 
 
 def run_population(card):
@@ -3872,9 +3889,8 @@ def run_population(card):
     excluded) and profiled (the idle share, against the timed dispatches'
     wall); then the solo summary driver, 2 timed population dispatches and
     the solo driver again, one dispatch each; B1's launches by body per
-    member and dispatch. (3) The learning
-    check of tests/test_population.py:53-75 (4 members, 16 envs, 40000 steps
-    each): every member's recent return above its early curve."""
+    member and dispatch. Its learning check runs in phase 11's child process
+    (`start_ppo_learning`), after PPO's anchor."""
     from pearl_tpu_torch.envs import CartPole
     from pearl_tpu_torch.training import online_learning, population_learning
     from pearl_tpu_torch.utils import compare
@@ -3935,6 +3951,21 @@ def run_population(card):
           flush=True)
     prof = profile_fn(None, pop_wall, unit="population dispatch", events=events)
     out.update(counts=counts, solo_rates=solo_rates, pop_rates=pop_rates, profile=prof)
+    return out
+
+
+def _population_learning_file():
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(here, "build", "chip_smoke_population.pt")
+
+
+def run_population_learning(card):
+    """Phase 39's learning check, tests/test_population.py:53-75 (4 members,
+    16 envs, 40000 steps each): every member's recent return above its early
+    curve. The population is saved for phase 41's round trip."""
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.training import population_learning
+    from pearl_tpu_torch.utils.checkpoint import save
 
     t0 = time.perf_counter()
     learn = population_learning(population_test_agent(), CartPole(), num_members=4,
@@ -3946,8 +3977,7 @@ def run_population(card):
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     assert (learn.recent_returns > early).all(), (early, learn.recent_returns)
     assert learn.recent_returns.mean() > 2.0 * early.mean()
-    out["learning_population"] = learn
-    return out
+    save(_population_learning_file(), learn)
 
 
 def host_syncs(fn):
@@ -4177,6 +4207,382 @@ def run_registry_and_checkpoint(card, population):
     return counts
 
 
+# ------------------------------------------------------------ distribution
+# Phases 42-45 (item 20). The card's machine has one H100: the mesh of one
+# (NCCL) is the path each rank takes when every rank has a GPU of its own;
+# two ranks share cuda:0 over gloo (NCCL refuses two ranks on one device),
+# which checks the collectives at full width but is no scaling number: two
+# processes share one card, and gloo stages CUDA tensors through the host.
+DP_RANKS = 2
+DP_DEVICE = "cuda:0"
+DP_TIMED = 2  # timed dispatches of the two-rank driver
+DP_RUNNER_STEPS = 4  # timed DataParallelRunner steps (a learn each)
+DP_LEARNS = 8  # learns timed alone on each rank
+ENSEMBLE_STEPS = 3
+# What each rank runs: this script imported from its own directory.
+DP_RANK_COMMAND = "import chip_smoke as c; c.dp_rank({role!r}, {rank}, {url!r})"
+# test_convergence.py:289-316, the mesh anchor: 16 envs over 2 ranks.
+MESH_ANCHOR = dict(num_envs=16, max_steps=250_000, learn_every_k_steps=2, learning_starts=500,
+                   seed=42, target_return=500.0, target_window=20)
+
+
+def run_dp_world1(card, driver):
+    """Phase 42: `online_learning(mesh=make_mesh(1))` (NCCL, a world of one
+    in this process) with the headline agent at its width (131072 envs,
+    summary stats, 64 chunks a dispatch), one dispatch with its set-up,
+    against phase 13's warm-up run of the solo driver at the same seed
+    (seed 0; run just before): the whole states (replay and envs
+    included), the return curve and the counts bit-equal, B1 at 512 tiled +
+    128 rows; then one more mesh dispatch timed alone and one under the
+    sync check (the host fetch excluded) and profiled (the idle share
+    against the dispatch timed alone)."""
+    from pearl_tpu_torch.parallel import make_mesh
+    from pearl_tpu_torch.utils import compare
+
+    mesh = make_mesh(1, device=DP_DEVICE)
+    assert mesh.backend == ("nccl" if mesh.device.type == "cuda" else "gloo"), mesh
+    agent = headline_agent()
+    solo, solo_wall = driver["warm_up"], driver["warm_up_wall"]
+    reset_fused_counts()
+    dp, dp_wall = timed_driver(agent, 1, seed=0, stats="summary", mesh=mesh)
+    counts = fused_counts()
+    assert counts["by_body"] == driver_body_counts(1), counts
+    for name, a, b in (("agent state", dp.agent_state, solo.agent_state),
+                       ("env states", dp.env_states, solo.env_states)):
+        diff = compare(a, b, rtol=0, atol=0)
+        assert diff == "", f"mesh of one against the solo driver, {name}: {diff}"
+    assert np.array_equal(dp.return_curve, solo.return_curve), "return curves differ"
+    assert (dp.total_episodes, dp.mean_return) == (solo.total_episodes, solo.mean_return)
+    dispatch = driver_dispatcher(agent, dp.agent_state, dp.env_states, "summary", seed=8,
+                                 mesh=mesh)
+    t0 = time.perf_counter()
+    dispatch()
+    torch.cuda.synchronize()
+    alone = time.perf_counter() - t0
+    box = {}
+    events = device_events(lambda: box.update(rows=no_sync(dispatch)))
+    assert box["rows"].shape == (DRV_CPD, 6) and torch.isfinite(box["rows"]).all()
+    prof = profile_fn(None, alone, unit="mesh dispatch", events=events)
+    per = DRV_B * DRV_SPL * DRV_CPD
+    print(f"dp world-1 ({mesh.backend}): bit-equal to the solo driver at seed 0 (whole states, return "
+          f"curve, {dp.total_episodes} episodes); env-steps/s with set-up (the mesh's the "
+          f"communicator's too): solo {per / solo_wall:.1f}, mesh of one {per / dp_wall:.1f}; "
+          f"one mesh dispatch {alone:.3f} s alone ({per / alone:.1f} env-steps/s, "
+          f"{alone / driver['dispatch_s']:.3f}x phase 13's solo dispatch alone, "
+          f"{driver['dispatch_s']:.3f} s), one under the sync check and profiled: no host "
+          f"sync; B1 "
+          f"{counts['launches']} launches, by body {counts['by_body']} on {card}", flush=True)
+    return {"counts": counts, "sps": per / dp_wall, "solo_sps": per / solo_wall,
+            "dispatch_s": alone, "profile": prof}
+
+
+def _dp_dir(role):
+    """A directory of the checkout's ignored build tree for one pair of ranks."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(here, "build", "chip_smoke_dp", role)
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    return directory
+
+
+def start_dp_ranks(role):
+    """Two child processes, the ranks of `dp_rank(role, ...)`, joined by a
+    rendezvous file; their output goes to files beside it."""
+    directory = _dp_dir(role)
+    url = f"file://{directory}/rendezvous"
+    here = os.path.dirname(os.path.abspath(__file__))
+    children = []
+    for r in range(DP_RANKS):
+        log = open(os.path.join(directory, f"rank{r}.log"), "w")
+        children.append((subprocess.Popen(
+            [sys.executable, "-c", DP_RANK_COMMAND.format(role=role, rank=r, url=url)],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT, text=True,
+        ), log))
+    return {"role": role, "directory": directory, "children": children}
+
+
+def finish_dp_ranks(ranks, timeout_s=900):
+    """Wait for both ranks, print their output, and return each rank's
+    result. A rank that fails ends the other (it would wait in its next
+    collective) and fails the phase."""
+    deadline = time.monotonic() + timeout_s
+    children = [child for child, _ in ranks["children"]]
+    try:
+        while any(c.poll() is None for c in children):
+            failed = [c for c in children if c.poll() not in (None, 0)]
+            assert not failed and time.monotonic() < deadline, (
+                f"{ranks['role']} ranks: exit codes {[c.poll() for c in children]}")
+            time.sleep(0.2)
+    finally:
+        for child, log in ranks["children"]:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            log.close()
+        for r in range(DP_RANKS):
+            with open(os.path.join(ranks["directory"], f"rank{r}.log")) as f:
+                print(f.read().rstrip(), flush=True)
+    results = []
+    for r, child in enumerate(children):
+        assert child.returncode == 0, f"{ranks['role']} rank {r} failed ({child.returncode})"
+        with open(os.path.join(ranks["directory"], f"rank{r}.log")) as f:
+            line = [x for x in f.read().splitlines() if x.startswith("DP_RESULT ")][-1]
+        results.append(json.loads(line[len("DP_RESULT "):]))
+    return results
+
+
+def dp_rank(role, rank, url):
+    """One rank of a pair on cuda:0 over gloo: "drive" runs phases 43 and 45,
+    "anchor" phase 44. Loads the kernels phase 2 built (a rank builds
+    nothing) and prints one line `DP_RESULT {json}`."""
+    import torch.distributed as dist
+
+    from pearl_tpu_torch.ops import _build
+    from pearl_tpu_torch.parallel import multihost
+
+    missing = [n for n in ("fused_mlp",) if not _build.library_path(n).exists()]
+    assert not missing, f"phase 2's build of {missing} is missing: a rank builds nothing"
+    multihost.initialize(url, DP_RANKS, rank, backend="gloo")
+    card = card_line()
+    result = {"drive": dp_drive, "anchor": dp_anchor}[role](rank, card)
+    print("DP_RESULT " + json.dumps(result), flush=True)
+    dist.destroy_process_group()
+
+
+def _env_digest(env_states):
+    from pearl_tpu_torch.utils.pytree import named_leaves
+
+    return sum(float(v.double().abs().sum()) for _, v in named_leaves(env_states)
+               if isinstance(v, torch.Tensor) and v.is_floating_point())
+
+
+def plain_fold_summary_rows(own):
+    """The plain version of the summary fold over the ranks: (ranks, C, 6)
+    rows of each rank -> (C, 6), the sums added and the recent return the
+    mean of the ranks' weighted by their finished envs."""
+    own = np.asarray(own, dtype=np.float64)
+    weight = own[..., 5]
+    rows = own.sum(axis=0)
+    rows[:, 2] = (own[..., 2] * weight).sum(axis=0) / np.maximum(weight.sum(axis=0), 1.0)
+    return rows
+
+
+def dp_drive(rank, card):
+    """Phase 43 on one rank (65536 of the 131072 envs): `online_learning`
+    with `check_replication`, a warm-up dispatch and DP_TIMED timed ones,
+    the replicas checked after each, each dispatch's statistics kept before
+    and after their fold over the ranks; B1's launches by body; then
+    `DataParallelRunner` and learns timed alone. Phase 45 after it."""
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.parallel import DataParallelRunner, make_mesh
+    from pearl_tpu_torch.training import online as online_mod
+    from pearl_tpu_torch.training import online_learning
+
+    mesh = make_mesh(DP_RANKS, device=DP_DEVICE, backend="gloo")
+    axis = mesh.axis("data")
+    agent = headline_agent()
+    per = DRV_B * DRV_SPL * DRV_CPD
+    kw = dict(num_envs=DRV_B, learn_every_k_steps=DRV_SPL, chunks_per_dispatch=DRV_CPD,
+              target_return=1e9, target_window=20, stats="summary", mesh=mesh,
+              check_replication=True)
+    t0 = time.perf_counter()
+    online_learning(agent, CartPole(), max_steps=per, seed=0, **kw)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    folds, fold = [], online_mod._fold_stats
+
+    def recorded(stats_dev, stats, axis):
+        folded = fold(stats_dev, stats, axis)
+        folds.append((stats_dev.clone(), folded.clone()))
+        return folded
+
+    online_mod._fold_stats = recorded
+    reset_fused_counts()
+    t0 = time.perf_counter()
+    res = online_learning(agent, CartPole(), max_steps=per * DP_TIMED, seed=1, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused_counts()
+    online_mod._fold_stats = fold
+    assert counts["by_body"] == driver_body_counts(DP_TIMED), counts
+    # check_replication checked the first timed dispatch; this, the last.
+    online_mod._assert_replicated(res.agent_state, axis)
+    assert res.total_episodes > 0 and np.isfinite(res.return_curve).all()
+    print(f"dp rank {rank} (gloo on {DP_DEVICE}, {DRV_B // DP_RANKS} envs): warm-up dispatch "
+          f"{warm:.3f} s with set-up; {DP_TIMED} timed dispatches {wall:.3f} s, replicas "
+          f"bit-identical after each; B1 {counts['by_body']} on {card}", flush=True)
+
+    runner = DataParallelRunner(agent, CartPole(), mesh, num_envs_per_device=DRV_B // DP_RANKS,
+                                steps_per_learn=DRV_SPL)
+    astate, env_states = runner.init(3)
+    astate, env_states, reward = runner.step(astate, env_states)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rewards = []
+    for _ in range(DP_RUNNER_STEPS):
+        astate, env_states, reward = runner.step(astate, env_states)
+        rewards.append(reward)
+    torch.cuda.synchronize()
+    runner_s = (time.perf_counter() - t0) / DP_RUNNER_STEPS
+    online_mod._assert_replicated(astate, axis)
+    t0 = time.perf_counter()
+    for _ in range(DP_LEARNS):
+        astate, _ = runner.agent.learn(astate, runner.generator)
+    torch.cuda.synchronize()
+    learn_s = (time.perf_counter() - t0) / DP_LEARNS
+    online_mod._assert_replicated(astate, axis)
+    out = {
+        "rank": rank, "warm_s": warm, "wall_s": wall, "counts": counts,
+        "steps": res.total_steps, "curve": res.return_curve.tolist(),
+        "episodes": res.total_episodes, "mean_return": res.mean_return,
+        "env_digest": _env_digest(res.env_states), "runner_step_s": runner_s,
+        "runner_rewards": [float(r) for r in rewards],
+        "runner_env_steps_per_call": runner.env_steps_per_call, "learn_s": learn_s,
+        "folds": [(own.tolist(), folded.tolist()) for own, folded in folds],
+    }
+    out["ensemble"] = dp_ensemble(rank, card)
+    return out
+
+
+def dp_ensemble(rank, card):
+    """Phase 45 on one rank of a (1, 2) mesh: the registry's BootstrappedDQN
+    (K = 10, batch 128) with members [5 j, 5 j + 5) on model rank j, the
+    sharded learn against the unsharded learn of all ten members on the
+    same batches, within rtol 1e-5 / atol 1e-6."""
+    import copy
+
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.parallel import (
+        make_2d_mesh,
+        make_ensemble_sharded_learn_batch,
+        split_ensemble_state,
+    )
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import BootstrappedDQN
+    from pearl_tpu_torch.replay_buffers import TransitionBatch
+    from pearl_tpu_torch.utils import compare
+
+    dev = torch.device(DP_DEVICE)
+    mesh = make_2d_mesh(1, DP_RANKS, device=DP_DEVICE, backend="gloo")
+    agent = PearlAgent(policy_learner=BootstrappedDQN(training_rounds=2, batch_size=128))
+    agent = agent.for_env(CartPole())
+    learner = agent.policy_learner
+    K, B = learner.q_network.ensemble_size, learner.batch_size
+    full = learner.init(torch.Generator().manual_seed(0), 4, learner.action_space, 1, dev)
+    j = mesh.axis("model").rank
+    piece = split_ensemble_state(learner, full, DP_RANKS)[j]
+    learn = make_ensemble_sharded_learn_batch(agent, mesh)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    worst = 0.0
+    for _ in range(ENSEMBLE_STEPS):
+        index = torch.randint(0, 2, (B,), generator=gen, device=dev, dtype=torch.int32)
+        batch = TransitionBatch(
+            state=torch.randn((B, 4), generator=gen, device=dev),
+            action=index[:, None].float(), reward=torch.randn((B,), generator=gen, device=dev),
+            next_state=torch.randn((B, 4), generator=gen, device=dev),
+            terminated=torch.rand((B,), generator=gen, device=dev) < 0.1,
+            truncated=torch.zeros((B,), dtype=torch.bool, device=dev), action_index=index,
+            bootstrap_mask=(torch.rand((B, K), generator=gen, device=dev) < 0.5).float(),
+        )
+        full, want = learner.learn_batch(full, batch)
+        piece, got = learn(piece, batch)
+        for k in ("loss", "per_sample_td"):
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+            worst = max(worst, float((got[k] - want[k]).abs().max()))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mine = split_ensemble_state(learner, copy.deepcopy(full), DP_RANKS)[j]
+    diff = compare(piece, mine, rtol=1e-5, atol=1e-6)
+    assert diff == "", f"sharded against unsharded, model rank {j}: {diff}"
+    for p, q in zip(piece.params.parameters(), mine.params.parameters()):
+        worst = max(worst, float((p - q).detach().abs().max()))
+    print(f"ensemble rank {rank} (model rank {j} of a (1, {DP_RANKS}) mesh, members "
+          f"[{j * K // DP_RANKS}, {(j + 1) * K // DP_RANKS}) of {K}): {ENSEMBLE_STEPS} sharded "
+          f"learns equal the unsharded learn within rtol 1e-5 / atol 1e-6 (max abs diff "
+          f"{worst:.3e}), {seconds:.3f} s on {card}", flush=True)
+    return {"model_rank": j, "max_abs_diff": worst, "seconds": seconds}
+
+
+def dp_anchor(rank, card):
+    """Phase 44 on one rank: the mesh anchor, DQN with the default
+    Q-network to CartPole 500 on 16 envs over the two ranks; replicas
+    byte for byte equal at the end (spread 0)."""
+    from pearl_tpu_torch.agent import PearlAgent
+    from pearl_tpu_torch.envs import CartPole
+    from pearl_tpu_torch.parallel import make_mesh
+    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
+    from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
+    from pearl_tpu_torch.training import online as online_mod
+    from pearl_tpu_torch.training import online_learning
+
+    mesh = make_mesh(DP_RANKS, device=DP_DEVICE, backend="gloo")
+    agent = PearlAgent(
+        policy_learner=DeepQLearning(training_rounds=4, batch_size=128,
+                                     exploration=EGreedyExploration(epsilon=0.05)),
+        replay_buffer=BasicReplayBuffer(capacity=10_000),
+    )
+    t0 = time.perf_counter()
+    res = online_learning(agent, CartPole(), mesh=mesh, **MESH_ANCHOR)
+    seconds = time.perf_counter() - t0
+    online_mod._assert_replicated(res.agent_state, mesh.axis("data"))
+    last = float(np.mean(res.episode_returns[-20:])) if len(res.episode_returns) else 0.0
+    print(f"mesh anchor rank {rank}: reached_target={res.reached_target} after "
+          f"{res.total_steps} env steps, {len(res.episode_returns)} episodes, last-20 mean "
+          f"return {last:.1f}, {seconds:.1f} s; replicas byte for byte equal (spread 0) on "
+          f"{card}", flush=True)
+    assert res.reached_target, "the mesh anchor did not reach CartPole 500"
+    return {"rank": rank, "steps": res.total_steps, "seconds": seconds,
+            "episodes": len(res.episode_returns), "last_mean": last}
+
+
+def run_dp_ranks(card):
+    """Phases 43 and 45: the two ranks of `dp_drive` on cuda:0, held against
+    each other: the folded statistics identical and equal to the plain fold
+    of the ranks' own rows, each env shard its own, B1 at 512 tiled + 128
+    rows a rank and dispatch, the runner's rewards the same on both ranks;
+    the rates labelled a correctness run."""
+    results = finish_dp_ranks(start_dp_ranks("drive"))
+    a, b = results
+    for key in ("steps", "curve", "episodes", "mean_return", "runner_rewards"):
+        assert a[key] == b[key], (key, a[key], b[key])
+    assert len(a["folds"]) == len(b["folds"]) == DP_TIMED, len(a["folds"])
+    for (own_a, folded_a), (own_b, folded_b) in zip(a["folds"], b["folds"]):
+        plain = plain_fold_summary_rows([own_a, own_b]).tolist()
+        assert folded_a == folded_b == plain, "the summary fold is not the plain fold"
+    assert a["env_digest"] != b["env_digest"], "the ranks' env shards are the same"
+    per_rank = DRV_B // DP_RANKS * DRV_SPL * DRV_CPD * DP_TIMED
+    walls = [r["wall_s"] for r in results]
+    total = DP_RANKS * per_rank / max(walls)
+    runner = a["runner_env_steps_per_call"] / max(r["runner_step_s"] for r in results)
+    print(f"dp, two ranks sharing {DP_DEVICE} over gloo (a correctness run, not a scaling "
+          f"number: two processes share one card and gloo stages CUDA tensors through the "
+          f"host): {total:.1f} env-steps/s in all, "
+          f"{[round(per_rank / w, 1) for w in walls]} a rank over {DP_TIMED} dispatches; "
+          f"the runner {runner:.1f} env-steps/s in all; host time a learn (its gloo "
+          f"all-reduce included) {[round(1e3 * r['learn_s'], 3) for r in results]} ms; "
+          f"folded statistics identical on both ranks and equal to the plain fold of their "
+          f"own rows ({a['episodes']} episodes, mean return "
+          f"{a['mean_return']:.3f}); env shards differ; B1 by body a rank "
+          f"{[r['counts']['by_body'] for r in results]} on {card}", flush=True)
+    worst = max(r["ensemble"]["max_abs_diff"] for r in results)
+    print(f"ensemble parallelism: sharded equals unsharded on both model ranks (max abs diff "
+          f"{worst:.3e}) on {card}", flush=True)
+    return {"counts": [r["counts"] for r in results], "sps": total, "runner_sps": runner,
+            "learn_ms": [1e3 * r["learn_s"] for r in results]}
+
+
+def finish_dp_anchor(ranks, card):
+    results = finish_dp_ranks(ranks)
+    assert results[0]["steps"] == results[1]["steps"]
+    print(f"mesh anchor: CartPole 500 after {results[0]['steps']} env steps over "
+          f"{DP_RANKS} ranks on {card}", flush=True)
+    return results[0]
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -4280,6 +4686,7 @@ def main() -> int:
     # for before the next phase that measures one.
     t0 = time.perf_counter()
     ppo_learning = start_ppo_learning()
+    mesh_anchor = start_dp_ranks("anchor")
     try:
         dqn_behaviour = run_learning(card)
         phase("learning (ppo learning beside it)", t0)
@@ -4297,12 +4704,18 @@ def main() -> int:
         phase("her learning (ppo learning beside it)", t0)
 
         t0 = time.perf_counter()
-        finish_ppo_learning(ppo_learning)
-        phase("ppo learning, the rest of its run", t0)
+        learning_population = finish_ppo_learning(ppo_learning)
+        phase("ppo and population learning, the rest of their run", t0)
+
+        t0 = time.perf_counter()
+        finish_dp_anchor(mesh_anchor, card)
+        phase("mesh anchor, the rest of its run", t0)
+
     finally:
-        if ppo_learning.poll() is None:
-            ppo_learning.kill()
-            ppo_learning.wait()
+        for child in [ppo_learning] + [c for c, _ in mesh_anchor["children"]]:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
 
     t0 = time.perf_counter()
     run_ppo_runner(card)
@@ -4315,6 +4728,14 @@ def main() -> int:
     t0 = time.perf_counter()
     driver = run_driver(card)
     phase("driver", t0)
+
+    t0 = time.perf_counter()
+    dp_world1 = run_dp_world1(card, driver)
+    phase("dp world-1", t0)
+
+    t0 = time.perf_counter()
+    dp_ranks = run_dp_ranks(card)
+    phase("dp two ranks and ensemble", t0)
 
     t0 = time.perf_counter()
     curves = run_curves(card)
@@ -4420,7 +4841,7 @@ def main() -> int:
     phase("host loops", t0)
 
     t0 = time.perf_counter()
-    registry = run_registry_and_checkpoint(card, population["learning_population"])
+    registry = run_registry_and_checkpoint(card, learning_population)
     phase("registry and checkpoint", t0)
 
     act = timing[ACT_SHAPE[0]]
@@ -4455,6 +4876,9 @@ def main() -> int:
             f"population ({POP_M} members, {POP_TIMED} dispatches)": population["counts"],
             "host loop (1000 acts at B = 1, 225 learns)": host_loops["counts"],
             "registry rows (39 rows, 4 envs)": registry["fused_mlp"],
+            "dp world-1 nccl driver (1 dispatch)": dp_world1["counts"],
+            **{f"dp two ranks on cuda:0, rank {r} ({DP_TIMED} dispatches)": c
+               for r, c in enumerate(dp_ranks["counts"])},
         },
         "widths": timing["widths"],
         "fma_probe_tflops": [act["fma_probe_128_tflops"], act["fma_probe_1024_tflops"]],

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from pearl_tpu_torch.neural_networks.common import MLP, resolve_activation
+from pearl_tpu_torch.utils.collectives import MeshAxis, check_pmean_axis, psum
 
 JITTER = 1e-6
 STATS_DTYPE = torch.float64
@@ -54,21 +55,18 @@ def append_ones(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)
 
 
-def refuse_pmean_axis(pmean_axis) -> None:
-    if pmean_axis is not None:
-        raise NotImplementedError("pmean_axis is not ported yet (ROADMAP Queue A, item 20)")
-
-
 @dataclasses.dataclass(frozen=True)
 class LinearRegression:
     feature_dim: int  # WITHOUT the intercept column
     l2_reg_lambda: float = 1.0
     gamma: float = 1.0  # discounting multiplier (<1 enables discounting)
     apply_discounting_interval: float = 0.0  # in accumulated weight units
-    pmean_axis: Optional[str] = None
+    # A `MeshAxis` over which the additive statistics of each update are
+    # summed (data parallelism), or None.
+    pmean_axis: Optional[MeshAxis] = None
 
     def __post_init__(self):
-        refuse_pmean_axis(self.pmean_axis)
+        check_pmean_axis(self.pmean_axis)
 
     @property
     def dim(self) -> int:
@@ -104,6 +102,8 @@ class LinearRegression:
         delta_A = xw.mT @ x
         delta_b = (xw * y[..., None]).sum(-2)
         delta_w = weight.sum(-1)
+        # The statistics are additive: sum every rank's rows (float64).
+        delta_A, delta_b, delta_w = psum([delta_A, delta_b, delta_w], self.pmean_axis)
         delta_A = (delta_A + delta_A.mT) / 2.0
         new = LinearRegressionState(
             A=state.A + delta_A,
@@ -219,8 +219,8 @@ class NeuralLinearRegression:
     def head(self, generator=None) -> MLP:
         return MLP(self.linear_feature_dim, (), 1, generator=generator)
 
-    def linear_regression(self) -> LinearRegression:
-        return LinearRegression(feature_dim=self.linear_feature_dim)
+    def linear_regression(self, pmean_axis=None) -> LinearRegression:
+        return LinearRegression(feature_dim=self.linear_feature_dim, pmean_axis=pmean_axis)
 
     def init(self, generator, device) -> NeuralLinearParams:
         return NeuralLinearParams(

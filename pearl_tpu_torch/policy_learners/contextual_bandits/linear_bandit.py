@@ -36,6 +36,7 @@ from pearl_tpu_torch.policy_learners.contextual_bandits.base import (
     ContextualBanditBase,
     whole_storage_batch,
 )
+from pearl_tpu_torch.utils.collectives import check_pmean_axis
 
 
 @dataclasses.dataclass
@@ -52,7 +53,10 @@ class LinearBandit(ContextualBanditBase):
     l2_reg_lambda: float = 1.0
     gamma: float = 1.0
     apply_discounting_interval: float = 0.0
-    pmean_axis: Any = None
+    pmean_axis: Any = None  # a `MeshAxis` over which the statistics are summed
+
+    def __post_init__(self):
+        check_pmean_axis(self.pmean_axis)
 
     @property
     def on_policy(self) -> bool:

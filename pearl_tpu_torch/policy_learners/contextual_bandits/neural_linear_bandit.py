@@ -29,10 +29,10 @@ from pearl_tpu_torch.neural_networks.contextual_bandit import (
     LinearRegressionState,
     NeuralLinearParams,
     NeuralLinearRegression,
-    refuse_pmean_axis,
 )
 from pearl_tpu_torch.policy_learners.contextual_bandits.base import ContextualBanditBase
 from pearl_tpu_torch.policy_learners.contextual_bandits.neural_bandit import adamw
+from pearl_tpu_torch.utils.collectives import check_pmean_axis, optimizer_params, pmean_grads
 
 
 @dataclasses.dataclass
@@ -58,14 +58,14 @@ class NeuralLinearBandit(ContextualBanditBase):
     learning_rate: float = 1e-3
     nn_e2e: bool = True
     l2_reg_lambda: float = 1.0
-    pmean_axis: Any = None
+    pmean_axis: Any = None  # a `MeshAxis`: gradients averaged, statistics summed
     training_rounds: int = 10
     batch_size: int = 128
     output_activation: str = "linear"
     separate_uncertainty: bool = False
 
     def __post_init__(self):
-        refuse_pmean_axis(self.pmean_axis)
+        check_pmean_axis(self.pmean_axis)
 
     def _nlr(self, feature_dim: int) -> NeuralLinearRegression:
         return NeuralLinearRegression(
@@ -113,8 +113,11 @@ class NeuralLinearBandit(ContextualBanditBase):
         loss = (per * weight).sum() / torch.clamp(weight.sum(), min=1e-8)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        pmean_grads(optimizer_params(state.optimizer), self.pmean_axis)
         state.optimizer.step()
         with torch.no_grad():
             learned = state.mlp_params(feats_in)
-        linreg = nlr.linear_regression().update(state.linreg, learned, batch.reward, weight)
+        linreg = nlr.linear_regression(pmean_axis=self.pmean_axis).update(
+            state.linreg, learned, batch.reward, weight
+        )
         return dataclasses.replace(state, linreg=linreg), {"loss": loss.detach()}

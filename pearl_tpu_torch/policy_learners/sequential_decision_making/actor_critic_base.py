@@ -48,7 +48,12 @@ on the device once at init (`PolicyLearner.action_tensors`), and
 `act_dtype`'s cast of the actor is a copy kept in the state and recast only
 when the actor was written (`utils.pytree.synced_cast`).
 
-Not ported: `pmean_axis` (ROADMAP Queue A, item 20).
+`pmean_axis` (a `MeshAxis`, set by `online_learning(mesh=...)`): the actor's
+and the critic's gradients (each with its summarizer part) are averaged over
+the mesh axis in one all-reduce before any optimizer steps, and the
+summarizer then takes the sum of the two averages, as in the reference.
+SAC's temperature and IQL's value net average theirs in `post_update`; the
+metrics stay local, as the reference's do.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
 )
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
+from pearl_tpu_torch.utils.collectives import check_pmean_axis, pmean
 from pearl_tpu_torch.utils.pytree import soft_update, synced_cast
 
 WEIGHT_DECAY = 0.01
@@ -151,7 +157,7 @@ class ActorCriticBase(PolicyLearner):
     actor_update_freq: int = 1  # TD3 delays actor updates
     training_rounds: int = 1
     batch_size: int = 256
-    pmean_axis: Optional[str] = None
+    pmean_axis: Any = None  # a `MeshAxis` to average gradients over, or None
     # Act-path mixed precision (e.g. "bfloat16"): the acting forward runs on
     # a cast copy of the actor and cast inputs; actions return as float32.
     act_dtype: Optional[str] = None
@@ -176,9 +182,8 @@ class ActorCriticBase(PolicyLearner):
             return GaussianActorNetwork(hidden_dims=self.actor_network.hidden_dims)
         return self.actor_network
 
-    def _require_ported(self) -> None:
-        if self.pmean_axis is not None:
-            raise NotImplementedError("pmean_axis is not ported yet (ROADMAP Queue A, item 20)")
+    def __post_init__(self):
+        check_pmean_axis(self.pmean_axis)
 
     def _act_dtype(self) -> torch.dtype:
         dtype = getattr(torch, str(self.act_dtype), None)
@@ -208,7 +213,6 @@ class ActorCriticBase(PolicyLearner):
         return None
 
     def init(self, generator, observation_dim: int, action_space, num_envs: int, device):
-        self._require_ported()
         subj_dim, rep_dim, num_actions = self.dims(observation_dim, action_space)
         actor = self._init_actor(generator, subj_dim, rep_dim, num_actions).to(device)
         critic = self._init_critic(generator, subj_dim, rep_dim)
@@ -282,7 +286,6 @@ class ActorCriticBase(PolicyLearner):
         it draws them from one key, so they are the same numbers: here too.
         On a discrete space `noise` is the exploration module's (B, A)
         Gumbel noise."""
-        self._require_ported()
         net = self.actor
         actor = self._act_actor(state)
         if state.act_actor is not None:
@@ -363,18 +366,22 @@ class ActorCriticBase(PolicyLearner):
         with torch.set_grad_enabled(bool(a_wrt)):
             subj = summ.forward(state.summarizer_params, batch.state)
             a_loss = self.actor_loss(state, state.actor_params, batch, subj, noise)
-        a_grads = torch.autograd.grad(a_loss, a_wrt) if a_wrt else []
-        summ_grads = a_grads[len(a_wrt) - len(summ_list):]
+        a_grads = list(torch.autograd.grad(a_loss, a_wrt)) if a_wrt else []
         metrics = {"actor_loss": a_loss.detach()}
+        c_grads = []
         if state.critic_params is not None:
             critic_list = list(state.critic_params.parameters())
             subj = summ.forward(state.summarizer_params, batch.state)
             with torch.no_grad():
                 next_subj = summ.forward(state.summarizer_params, batch.next_state)
             c_loss = self.critic_loss(state, state.critic_params, batch, subj, next_subj, noise)
-            c_grads = torch.autograd.grad(c_loss, critic_list + summ_list)
-            summ_grads = [a + c for a, c in zip(summ_grads, c_grads[len(critic_list):])]
+            c_grads = list(torch.autograd.grad(c_loss, critic_list + summ_list))
             metrics["critic_loss"] = c_loss.detach()
+        synced = pmean(a_grads + c_grads, self.pmean_axis)
+        a_grads, c_grads = synced[: len(a_grads)], synced[len(a_grads):]
+        summ_grads = a_grads[len(a_wrt) - len(summ_list):]
+        if state.critic_params is not None:
+            summ_grads = [a + c for a, c in zip(summ_grads, c_grads[len(critic_list):])]
 
         if do_actor:
             apply_grads(state.actor_opt, actor_list, a_grads[: len(actor_list)])

@@ -88,7 +88,9 @@ class BootstrappedDQN(DeepTDLearning):
             ActionChoice(action=action, index=index),
         )
 
-    def td_loss(self, state: BootstrappedDQNState, batch: TransitionBatch):
+    def member_td(self, state: BootstrappedDQNState, batch: TransitionBatch):
+        """(td, mask), both (B, K): each member's TD error on each row, with
+        grad to the online members, times the row's bootstrap mask."""
         gamma = self.discount_factor
         subj = self.history_summarizer.forward(state.summarizer_params, batch.state)
         B = subj.shape[0]
@@ -117,7 +119,10 @@ class BootstrappedDQN(DeepTDLearning):
             next_v = next_target.gather(2, a_star)[..., 0]  # (B, K)
             not_term = 1.0 - batch.terminated.to(torch.float32)
             target = batch.reward[:, None] + gamma * not_term[:, None] * next_v
-        td = (q_sa - target) * boot_mask
+        return (q_sa - target) * boot_mask, boot_mask
+
+    def td_loss(self, state: BootstrappedDQNState, batch: TransitionBatch):
+        td, boot_mask = self.member_td(state, batch)
         per_member = (td**2).sum(dim=0) / torch.clamp(boot_mask.sum(dim=0), min=1.0)
         abs_td = td.detach().abs()
         return per_member.sum(), {"loss": abs_td.mean(), "per_sample_td": abs_td.mean(dim=1)}

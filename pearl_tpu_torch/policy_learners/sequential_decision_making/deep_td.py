@@ -12,6 +12,12 @@ Semantics kept from the reference:
 - Target network soft-updated every `target_update_freq` learn steps, counted
   on the post-increment step, with `soft_update_tau`.
 - The reported "loss" is the mean |TD error|, not the optimized MSE.
+- `pmean_axis` (a `MeshAxis`, set by `online_learning(mesh=...)`): the
+  gradients of everything the optimizer steps, the summarizer's included,
+  and the scalar metrics are averaged over the mesh axis between the
+  backward pass and the step, in one all-reduce; `per_sample_td` stays
+  local (each rank owns its replay shard's priorities). This one site
+  covers DQN, Double DQN, SARSA, CQL, QR-DQN and Bootstrapped DQN.
 - Unavailable next actions are masked to -inf before the max.
 
 - `act_dtype` (e.g. "bfloat16"): the acting forward runs on params and inputs
@@ -53,6 +59,7 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
 )
 from pearl_tpu_torch.policy_learners.policy_learner import ActionChoice, PolicyLearner
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
+from pearl_tpu_torch.utils.collectives import check_pmean_axis, optimizer_params, pmean_grads
 from pearl_tpu_torch.utils.pytree import soft_update, synced_cast
 
 
@@ -91,8 +98,13 @@ class DeepTDLearning(PolicyLearner):
     is_conservative: bool = False
     conservative_alpha: float = 2.0
     act_dtype: Optional[str] = None
+    # A `MeshAxis` to average gradients over (data parallelism), or None.
+    pmean_axis: Any = None
 
     state_type: ClassVar[type] = DeepTDState
+
+    def __post_init__(self):
+        check_pmean_axis(self.pmean_axis)
 
     def optimizer(self, params: nn.Module, summarizer_params: Any = None) -> torch.optim.Optimizer:
         """One AdamW over the Q-network's and the summarizer's parameters, as
@@ -246,6 +258,11 @@ class DeepTDLearning(PolicyLearner):
         loss, aux = self.td_loss(state, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        scalars = [k for k, v in aux.items() if v.dim() == 0]
+        means = pmean_grads(
+            optimizer_params(state.optimizer), self.pmean_axis, [aux[k] for k in scalars]
+        )
+        aux = {**aux, **dict(zip(scalars, means))}
         state.optimizer.step()
         step = state.step + 1
         if step % self.target_update_freq == 0:

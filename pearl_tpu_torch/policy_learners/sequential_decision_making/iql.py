@@ -34,6 +34,7 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.actor_critic_bas
     _adamw,
     apply_grads,
 )
+from pearl_tpu_torch.utils.collectives import pmean
 
 
 @dataclasses.dataclass
@@ -120,5 +121,6 @@ class ImplicitQLearning(ActorCriticBase):
         value = state.extra.value_params
         params = list(value.parameters())
         loss = expectile_loss(q, self.value_network.value(value, subj), self.expectile)
-        apply_grads(state.extra.value_opt, params, torch.autograd.grad(loss, params))
+        grads = pmean(torch.autograd.grad(loss, params), self.pmean_axis)
+        apply_grads(state.extra.value_opt, params, grads)
         return state, {"value_loss": loss.detach()}

@@ -35,6 +35,7 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.actor_critic_bas
     apply_grads,
 )
 from pearl_tpu_torch.replay_buffers.on_policy import OnPolicyReplayBuffer
+from pearl_tpu_torch.utils.collectives import pmean
 
 
 def gae_lambda_returns(rewards, values, next_values, terminated, done, discount, lam):
@@ -61,22 +62,24 @@ def log_prob_of(probs: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.clamp(select_index_last(probs, index), 1e-8, 1.0))
 
 
-def on_policy_step(state: ActorCriticState, a_loss, c_loss):
+def on_policy_step(state: ActorCriticState, a_loss, c_loss, pmean_axis):
     """One step of actor, critic and summarizer: the actor's gradient to the
     actor, the critic's to the critic, their sum to the summarizer (which
-    takes no step without parameters). Returns (state', metrics)."""
+    takes no step without parameters); the three averaged over
+    `pmean_axis` first, in one all-reduce. Returns (state',
+    metrics)."""
     actor_list = list(state.actor_params.parameters())
     critic_list = list(state.critic_params.parameters())
     summ_list = _parameters(state.summarizer_params)
+    na, nc = len(actor_list), len(critic_list)
     a_grads = torch.autograd.grad(a_loss, actor_list + summ_list)
     c_grads = torch.autograd.grad(c_loss, critic_list + summ_list)
-    apply_grads(state.actor_opt, actor_list, a_grads[: len(actor_list)])
-    apply_grads(state.critic_opt, critic_list, c_grads[: len(critic_list)])
+    summ_grads = [a + c for a, c in zip(a_grads[na:], c_grads[nc:])]
+    synced = pmean([*a_grads[:na], *c_grads[:nc], *summ_grads], pmean_axis)
+    apply_grads(state.actor_opt, actor_list, synced[:na])
+    apply_grads(state.critic_opt, critic_list, synced[na:na + nc])
     if state.summ_opt is not None:
-        summ_grads = [
-            a + c for a, c in zip(a_grads[len(actor_list):], c_grads[len(critic_list):])
-        ]
-        apply_grads(state.summ_opt, summ_list, summ_grads)
+        apply_grads(state.summ_opt, summ_list, synced[na + nc:])
     metrics = {"actor_loss": a_loss.detach(), "critic_loss": c_loss.detach()}
     return dataclasses.replace(state, step=state.step + 1), metrics
 
@@ -190,7 +193,7 @@ class ProximalPolicyOptimization(ActorCriticBase):
             state.critic_params, summ.forward(state.summarizer_params, mb["stored"])
         )
         c_loss = torch.mean((v - mb["lam_return"]) ** 2)
-        return on_policy_step(state, a_loss, c_loss)
+        return on_policy_step(state, a_loss, c_loss, self.pmean_axis)
 
     def learn_batch(self, state, batch):
         raise NotImplementedError("PPO learns from whole rollouts via learn()")

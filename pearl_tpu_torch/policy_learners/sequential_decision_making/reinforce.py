@@ -88,7 +88,7 @@ class REINFORCE(ActorCriticBase):
         a_loss = -torch.mean(logp * (returns - baseline))
         v = critic.value(state.critic_params, summ.forward(state.summarizer_params, flat["stored"]))
         c_loss = torch.mean((v - returns) ** 2)
-        state, metrics = on_policy_step(state, a_loss, c_loss)
+        state, metrics = on_policy_step(state, a_loss, c_loss, self.pmean_axis)
         return state, buffer_state, metrics
 
     def learn_batch(self, state, batch):

@@ -44,6 +44,7 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.sac_continuous i
     alpha_value,
     init_alpha,
 )
+from pearl_tpu_torch.utils.collectives import pmean
 
 
 def twin_q_all(critic, params, subj, candidates):
@@ -125,7 +126,8 @@ class SoftActorCritic(ActorCriticBase):
             inner = log_probs + self._target_entropy()
         log_alpha = state.extra.log_alpha
         loss = -torch.mean(torch.sum(probs * torch.exp(log_alpha) * inner, dim=-1))
-        apply_grads(state.extra.optimizer, [log_alpha], torch.autograd.grad(loss, [log_alpha]))
+        grads = pmean(torch.autograd.grad(loss, [log_alpha]), self.pmean_axis)
+        apply_grads(state.extra.optimizer, [log_alpha], grads)
         return state, {"alpha": torch.exp(log_alpha.detach())}
 
     def episode_reset(self, state, done_mask, generator):

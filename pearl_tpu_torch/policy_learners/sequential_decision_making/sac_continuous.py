@@ -25,6 +25,7 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making.actor_critic_bas
     ActorCriticState,
     apply_grads,
 )
+from pearl_tpu_torch.utils.collectives import pmean
 
 
 @dataclasses.dataclass
@@ -108,5 +109,6 @@ class ContinuousSoftActorCritic(ActorCriticBase):
             )
         log_alpha = state.extra.log_alpha
         loss = -torch.mean(torch.exp(log_alpha) * (log_prob + self._target_entropy()))
-        apply_grads(state.extra.optimizer, [log_alpha], torch.autograd.grad(loss, [log_alpha]))
+        grads = pmean(torch.autograd.grad(loss, [log_alpha]), self.pmean_axis)
+        apply_grads(state.extra.optimizer, [log_alpha], grads)
         return state, {"alpha": torch.exp(log_alpha.detach())}

@@ -31,7 +31,9 @@ lambda is a 0-dim tensor on the device, and an update makes no host sync.
 policy draws (standard normal (B, d) on a continuous space, Gumbel (B, A) on
 a discrete one), so tests hand both packages the same numbers.
 
-Not ported: `pmean_axis` (ROADMAP Queue A, item 20).
+`pmean_axis` (a `MeshAxis`, set by `online_learning(mesh=...)`): the cost
+critic's gradients and the cost estimate that drives lambda are averaged over
+the mesh axis, so the safety replicas stay bit-identical.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from torch import nn
 from pearl_tpu_torch.neural_networks.twin_critic import TwinCritic
 from pearl_tpu_torch.policy_learners.exploration_modules.common import gumbel
 from pearl_tpu_torch.safety_modules.identity import SafetyModule
+from pearl_tpu_torch.utils.collectives import check_pmean_axis, pmean, pmean_grads
 from pearl_tpu_torch.utils.pytree import soft_update
 
 
@@ -69,14 +72,15 @@ class RCSafetyModuleCostCriticContinuousAction(SafetyModule):
     critic_soft_update_tau: float = 0.005
     critic_hidden_dims: tuple = (64, 64)
     batch_size: int = 256
-    pmean_axis: Any = None
+    pmean_axis: Any = None  # a `MeshAxis` to average over, or None
+
+    def __post_init__(self):
+        check_pmean_axis(self.pmean_axis)
 
     def _critic(self) -> TwinCritic:
         return TwinCritic(hidden_dims=tuple(self.critic_hidden_dims))
 
     def init(self, generator, observation_dim: int, action_space, num_envs: int, device=None):
-        if self.pmean_axis is not None:
-            raise NotImplementedError("pmean_axis is not ported yet (ROADMAP Queue A, item 20)")
         # A discrete learner's actions reach the critic one-hot.
         a_dim = action_space.action_dim if action_space.is_continuous else action_space.n
         params = self._critic().init(generator, observation_dim, a_dim).to(device)
@@ -159,6 +163,7 @@ class RCSafetyModuleCostCriticContinuousAction(SafetyModule):
         loss = (torch.mean((q1 - y) ** 2) + torch.mean((q2 - y) ** 2)) / 2.0
         state.critic_opt.zero_grad(set_to_none=True)
         loss.backward()
+        pmean_grads(state.critic_params.parameters(), self.pmean_axis)
         state.critic_opt.step()
         soft_update(state.critic_target_params, state.critic_params, self.critic_soft_update_tau)
         with torch.no_grad():
@@ -168,6 +173,7 @@ class RCSafetyModuleCostCriticContinuousAction(SafetyModule):
             )
             q1, q2 = critic.q_both(state.critic_params, subj, a_pi)
             cost_q = torch.mean(torch.maximum(q1, q2))
+            (cost_q,) = pmean([cost_q], self.pmean_axis)
             lam = torch.clamp(
                 state.lagrangian
                 + self.lr_lambda

@@ -1,5 +1,4 @@
-"""Online learning driver (port of `pearl_tpu/training/online.py` on one
-device).
+"""Online learning driver (port of `pearl_tpu/training/online.py`).
 
 One chunk is `learn_every_k_steps` vectorized env steps followed by one
 `agent.learn`; a dispatch runs `chunks_per_dispatch` chunks eagerly on the
@@ -30,6 +29,22 @@ Three statistics modes (`stats=`):
   in env order are written (those the drain reads), so no slot has two
   writers and the result does not depend on the order of a scatter.
 
+`mesh=` (a `parallel.make_mesh` mesh; every rank of it calls
+`online_learning` with the same arguments) runs the driver data-parallel:
+`num_envs` and `max_steps` are global, each rank steps its own
+`num_envs / ranks` envs from its own generator (`rank_seed`), the learner is
+initialised from the shared seed on every rank and its gradients are averaged
+over the mesh axis (the learner's and the safety module's `pmean_axis`), so
+the replicas stay bit-identical. Each dispatch's statistics are folded over
+the ranks on the device before the fetch (one all-reduce): summary rows as
+sums and an envs-weighted mean of the recent return, full and curves
+statistics gathered in rank order (env order within a step is rank-blocked,
+as in the reference). Every rank returns its own `OnlineResult` with the same
+global statistics and stops at the same dispatch; its `agent_state` is the
+rank's own. The reference's LSTM summarizer promotes its scan carry with
+`jax.lax.pcast` only to satisfy JAX's varying-manual-axes check; a process
+per rank has no such check, and the port needs no counterpart.
+
 `deferred_push=True` collects a chunk's transitions and writes them in one
 step-major push of k * B rows; with capacity % (k * B) == 0 the ring holds
 the same rows as k per-step pushes, and the run is the same bit for bit. The
@@ -47,8 +62,10 @@ import torch
 
 from pearl_tpu_torch.agent.pearl_agent import AgentState, PearlAgent
 from pearl_tpu_torch.envs.vector import VectorEnv
+from pearl_tpu_torch.parallel.data_parallel import Mesh, rank_seed, with_pmean_axis
+from pearl_tpu_torch.utils.collectives import MeshAxis, broadcast_bytes, gather_blocks, psum
 from pearl_tpu_torch.utils.device import DeviceLike, make_generator, resolve_device
-from pearl_tpu_torch.utils.pytree import tree_map
+from pearl_tpu_torch.utils.pytree import named_leaves, tree_map
 
 # Columns of the summary mode's per-chunk row.
 _S_TOTAL_FIN = 0  # finished episodes so far (cumulative)
@@ -241,6 +258,58 @@ def _make_chunk_fn(
     return run_chunk
 
 
+def _fold_stats(stats_dev: torch.Tensor, stats: str, axis: Optional[MeshAxis]) -> torch.Tensor:
+    """One dispatch's statistics of every rank, on the device: summary rows
+    summed over the ranks with the recent return as the envs-weighted mean
+    of the ranks' (the reference's `_fold_summary_rows`), any other mode's
+    tensor gathered with a leading rank axis. Without an axis, the tensor
+    as it is (with a rank axis of 1 outside summary mode)."""
+    if axis is None:
+        return stats_dev if stats == "summary" else stats_dev[None]
+    if stats != "summary":
+        return gather_blocks(stats_dev, axis)
+    rows = stats_dev.clone()
+    rows[:, _S_RECENT] *= rows[:, _S_ENVS_FIN]
+    (rows,) = psum([rows], axis)
+    rows[:, _S_RECENT] /= torch.clamp(rows[:, _S_ENVS_FIN], min=1.0)
+    return rows
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _assert_replicated(agent_state: AgentState, axis: MeshAxis) -> None:
+    """`check_replication`: every leaf of the learner state (but its per-env
+    `explore_state`) and of the safety state, generators' states and host
+    numbers included, must equal rank 0's byte for byte. Rank 0's leaves are
+    broadcast, each rank compares its own, and one all-reduce tells every
+    rank which leaves differ anywhere, so that all of them raise together."""
+    learner = agent_state.learner
+    if hasattr(learner, "explore_state"):
+        learner = dataclasses.replace(learner, explore_state=None)
+    names, leaves = [], []
+    for name, leaf in named_leaves({"learner": learner, "safety": agent_state.safety}):
+        if isinstance(leaf, (bool, int, float)):
+            leaf = torch.tensor(float(leaf), dtype=torch.float64)
+        if isinstance(leaf, torch.Tensor):
+            names.append(name)
+            leaves.append(leaf.to(axis.device))
+    theirs = broadcast_bytes(leaves, axis)
+    differs = torch.tensor(
+        [float(not torch.equal(_as_bytes(a), _as_bytes(b))) for a, b in zip(leaves, theirs)],
+        device=axis.device,
+    )
+    (differs,) = psum([differs], axis)
+    bad = [names[i] for i in torch.nonzero(differs).reshape(-1).tolist()]
+    if bad:
+        raise ValueError(
+            "replication check failed: these learner/safety state leaves differ across the "
+            "ranks of the mesh after the first dispatch; a state update is missing its "
+            "pmean over the mesh axis: " + "; ".join(bad)
+        )
+
+
 def online_learning(
     agent: PearlAgent,
     env,
@@ -260,8 +329,10 @@ def online_learning(
     verbose: bool = False,
     stats: str = "full",
     curve_capacity: int = 4096,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
+    mesh_axis: str = "data",
     deferred_push: Optional[bool] = None,
+    check_replication: bool = False,
     device: DeviceLike = None,
 ) -> OnlineResult:
     """Run vectorized online learning on `device` (the card unless
@@ -271,23 +342,56 @@ def online_learning(
     recent finished return, once `target_window` episodes and as many envs
     have finished). Until `learning_starts` env steps the chunks do not
     learn. A given `agent_state` keeps its learned state and gets fresh
-    per-env leaves for the new envs."""
+    per-env leaves for the new envs.
+
+    `mesh` (see the module docstring): data parallelism over the mesh axis
+    `mesh_axis`, on the mesh's device; `num_envs` must divide over its
+    ranks. A given `agent_state` is this rank's own, or the list of every
+    rank's in rank order (`parallel.reshard_agent_state` makes one for
+    another mesh width). `check_replication=True` checks, after the first
+    dispatch that learned, that the learner and safety states are the same
+    on every rank, and raises naming the leaves that are not."""
     if stats not in _STATS_MODES:
         raise ValueError(f"stats must be one of {_STATS_MODES}, got {stats!r}")
+    axis = None
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue A, item 20)")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be a Mesh from pearl_tpu_torch.parallel.make_mesh, got "
+                f"{type(mesh).__name__}"
+            )
+        axis = mesh.axis(mesh_axis)
+        if device is not None and resolve_device(device) != axis.device:
+            raise ValueError(f"device={device!r} is not the mesh's device {axis.device}")
+        device = axis.device
+        if num_envs % axis.size != 0:
+            raise ValueError(
+                f"num_envs={num_envs} must divide evenly over the {axis.size}-device mesh"
+            )
+        agent = with_pmean_axis(agent, axis)
+    n_dev = 1 if axis is None else axis.size
+    rank = 0 if axis is None else axis.rank
+    if isinstance(agent_state, (list, tuple)):
+        if len(agent_state) != n_dev:
+            raise ValueError(
+                f"agent_state holds {len(agent_state)} per-rank states for a mesh of {n_dev}: "
+                f"use parallel.reshard_agent_state(states, {n_dev}) first"
+            )
+        agent_state = agent_state[rank]
     deferred_push = bool(deferred_push)
     if deferred_push and not agent.replay_buffer.supports_deferred_push:
         raise ValueError(
             f"{type(agent.replay_buffer).__name__} does not support deferred "
             "(chunk-granular) pushes"
         )
-    if stats == "curves" and num_envs > curve_capacity:
+    envs_per_dev = num_envs // n_dev
+    if stats == "curves" and envs_per_dev > curve_capacity:
         warnings.warn(
-            f"stats='curves' with num_envs={num_envs} > curve_capacity={curve_capacity}: "
-            "if more than curve_capacity episodes finish in one step, the oldest of them "
-            "are dropped (counted in episodes_dropped). Raise curve_capacity to at least "
-            "num_envs to rule this out.",
+            f"stats='curves' with {envs_per_dev} envs a rank (num_envs={num_envs} over "
+            f"{n_dev}) > curve_capacity={curve_capacity}: if more than curve_capacity "
+            "episodes finish in one step on one rank, the oldest of them are dropped "
+            "(counted in episodes_dropped). Raise curve_capacity to at least the envs a "
+            "rank to rule this out.",
             stacklevel=2,
         )
     min_pushes = getattr(agent.replay_buffer, "min_pushes_before_sample", 1)
@@ -304,26 +408,26 @@ def online_learning(
         )
     device = resolve_device(device)
     agent = agent.for_env(env)
-    venv = VectorEnv(env, num_envs, device)
-    generator = make_generator(seed, device)
+    venv = VectorEnv(env, envs_per_dev, device)
+    generator = make_generator(rank_seed(seed, rank), device)
 
     if env_states is None:
         env_states, obs = venv.reset(generator)
         if agent_state is None:
-            agent_state = agent.init(seed, venv.observation_dim, num_envs, obs, device=device)
+            agent_state = agent.init(seed, venv.observation_dim, envs_per_dev, obs, device=device)
         else:
             agent_state = dataclasses.replace(
                 agent_state,
                 **agent.fresh_per_env_state(
-                    venv.observation_dim, num_envs, obs, device,
+                    venv.observation_dim, envs_per_dev, obs, device,
                     params=agent.cache_params(agent_state.learner),
                 ),
             )
 
     if stats == "curves":
-        accounting = _CurveStats(num_envs, device, curve_capacity)
+        accounting = _CurveStats(envs_per_dev, device, curve_capacity)
     else:
-        accounting = (_SummaryStats if stats == "summary" else _FullStats)(num_envs, device)
+        accounting = (_SummaryStats if stats == "summary" else _FullStats)(envs_per_dev, device)
 
     def chunk_fn(do_learn):
         return _make_chunk_fn(agent, venv, learn_every_k_steps, do_learn, exploit,
@@ -332,20 +436,21 @@ def online_learning(
     run_chunk = chunk_fn(learn)
     warm_chunk = chunk_fn(False) if learning_starts > 0 else None
 
-    ep_ret = torch.zeros((num_envs,), device=device)
-    ep_aux = tuple(torch.zeros((num_envs,), device=device) for _ in range(3))
+    ep_ret = torch.zeros((envs_per_dev,), device=device)
+    ep_aux = tuple(torch.zeros((envs_per_dev,), device=device) for _ in range(3))
     finished: list = []
     finished_costs: list = []
     finished_risky: list = []
     curve: list = []
     last_summary = np.zeros((6,))
-    drain = RingDrain()
+    drains = [RingDrain() for _ in range(n_dev)]  # curves: one ring a rank
     total = 0
     reached = False
+    verbose = verbose and rank == 0
 
     def consume(stats_dev, steps_done):
-        """Fetch one dispatch's stats (one device-to-host copy) and fold its
-        finished episodes in."""
+        """Fetch one dispatch's stats, folded over the ranks (one
+        device-to-host copy), and fold its finished episodes in."""
         nonlocal reached, last_summary
         arr = stats_dev.cpu().numpy()
         if stats == "summary":
@@ -366,10 +471,17 @@ def online_learning(
                 reached = reached or bool(hit.any())
             return
         if stats == "curves":
-            ring = arr[:-2].view(np.float32).reshape(3, curve_capacity)
-            episodes = drain.drain(int(arr[-2:].view(np.int64)[0]), ring)
+            # Each rank's ring in rank order, as the reference drains its devices.
+            episodes = np.concatenate([
+                drain.drain(int(block[-2:].view(np.int64)[0]),
+                            block[:-2].view(np.float32).reshape(3, curve_capacity))
+                for drain, block in zip(drains, arr)
+            ])
             ret, cost, risky = episodes[:, 0], episodes[:, 1], episodes[:, 2]
         else:
+            # (ranks, 4, steps, B) -> (4, steps, ranks * B): step-major, env
+            # order within a step rank-blocked.
+            arr = np.concatenate(list(arr), axis=-1)
             d = arr[0].reshape(-1) > 0.5
             ret, cost, risky = (arr[i].reshape(-1)[d] for i in (1, 2, 3))
         finished.extend(ret.tolist())
@@ -386,13 +498,18 @@ def online_learning(
                 reached = True
 
     pending = None  # (stats on the device, total steps after that dispatch)
+    replication_checked = not (check_replication and axis is not None and learn)
     while total < max_steps and not reached:
         learning_now = not (warm_chunk is not None and total < learning_starts)
         chunk = run_chunk if learning_now else warm_chunk
         agent_state, env_states, ep_ret, ep_aux, stats_dev = chunk(
             agent_state, env_states, ep_ret, ep_aux, generator
         )
+        stats_dev = _fold_stats(stats_dev, stats, axis)
         total += learn_every_k_steps * num_envs * chunks_per_dispatch
+        if learning_now and not replication_checked:
+            _assert_replicated(agent_state, axis)
+            replication_checked = True
         if pending is not None:
             consume(*pending)
         pending = (stats_dev, total)
@@ -423,6 +540,6 @@ def online_learning(
         episode_costs=np.asarray(finished_costs),
         episode_risky_ratios=np.asarray(finished_risky),
         # curves: the lifetime count, dropped episodes included.
-        total_episodes=drain.total if stats == "curves" else len(finished),
-        episodes_dropped=drain.dropped,
+        total_episodes=sum(d.total for d in drains) if stats == "curves" else len(finished),
+        episodes_dropped=sum(d.dropped for d in drains),
     )

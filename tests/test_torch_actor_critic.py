@@ -11,6 +11,7 @@ sac_continuous.py:102, td3.py:31); the tests draw the same numbers from the
 same keys and hand them to the port through its `noise=` seams.
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -50,9 +51,11 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making import (
     ContinuousSoftActorCritic,
     DeepDeterministicPolicyGradient,
 )
+from pearl_tpu_torch.parallel import make_mesh
 from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, TransitionBatch
 from pearl_tpu_torch.training import make_compiled_runner, online_learning
 from pearl_tpu_torch.utils import make_generator
+from pearl_tpu_torch.utils.pytree import compare
 from pearl_tpu_torch.utils.jax_params import (
     load_flax_deterministic_actor_params,
     load_flax_gaussian_actor_params,
@@ -302,9 +305,19 @@ def test_features_not_ported_raise():
         tstate = tl.init(torch.Generator(), 4, tl.action_space, 1, CPU)
         ref = traverse_util.flatten_dict(jax.tree.map(np.shape, jstate.actor_params))
         assert {k: v.shape for k, v in _port_leaves(tstate.actor_params).items()} == ref
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tl = ContinuousSoftActorCritic(pmean_axis="dp").bind(Pendulum().action_space)
-        tl.init(torch.Generator(), 3, tl.action_space, 1, CPU)
+    # `pmean_axis` on a mesh of one rank averages nothing: the learn step is
+    # the step without it, bit for bit.
+    _, _, tl, tstate = _learners("csac_autotune")
+    alone = copy.deepcopy(tstate)
+    _, tbatch = _batches(_batch_data(40))
+    noise = {k: torch.randn(B, 1, generator=torch.Generator().manual_seed(i))
+             for i, k in enumerate(("actor", "critic", "target", "alpha"))}
+    axis = make_mesh(1, device="cpu").axis("data")
+    tstate, metrics = dataclasses.replace(tl, pmean_axis=axis).learn_batch(tstate, tbatch,
+                                                                          noise=noise)
+    alone, alone_metrics = tl.learn_batch(alone, tbatch, noise=noise)
+    assert compare(tstate, alone, rtol=0, atol=0) == ""
+    assert all(torch.equal(metrics[k], alone_metrics[k]) for k in metrics)
     # preprocess_batch is the identity, as the JAX learner's, and
     # PearlAgent.learn_batch hands the learner what it returns.
     jl, jstate, tl, tstate = _learners("ddpg")

@@ -228,11 +228,13 @@ def test_statistics_stay_positive_definite_on_a_rank_deficient_batch():
 
 
 def test_pmean_axis_raises_for_item_20():
+    # A `pmean_axis` is a mesh axis of `parallel.make_mesh`: a bare name
+    # outside a mesh is a TypeError that says so.
     for make in (lambda: LinearRegression(feature_dim=2, pmean_axis="dp"),
                  lambda: LinearBandit(pmean_axis="dp").bind(DiscreteActionSpace.discrete(2))
                  .init(None, 2, DiscreteActionSpace.discrete(2), 1, CPU),
                  lambda: NeuralLinearBandit(pmean_axis="dp")):
-        with pytest.raises(NotImplementedError, match="item 20"):
+        with pytest.raises(TypeError, match="make_mesh"):
             make()
 
 

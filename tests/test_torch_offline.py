@@ -44,6 +44,7 @@ from pearl_tpu_torch.policy_learners.sequential_decision_making import (
     ImplicitQLearning,
     expectile_loss,
 )
+from pearl_tpu_torch.parallel import make_mesh
 from pearl_tpu_torch.replay_buffers import BasicReplayBuffer, TransitionBatch
 from pearl_tpu_torch.training import (
     collect_offline_data,
@@ -56,6 +57,7 @@ from pearl_tpu_torch.training import (
 )
 from pearl_tpu_torch.utils.jax_params import load_flax_iql_state
 from pearl_tpu_torch.utils.metrics import MetricsLogger, normalized_score
+from pearl_tpu_torch.utils.pytree import compare
 from tests.test_torch_actor_critic import _assert_adam_close, _assert_leaves_close, _port_leaves
 
 torch.set_num_threads(1)
@@ -190,9 +192,19 @@ def test_expectile_loss_on_given_q_and_v():
 
 
 def test_iql_pmean_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tl = ImplicitQLearning(pmean_axis="dp").bind(Pendulum().action_space)
-        tl.init(torch.Generator(), 3, tl.action_space, 1, CPU)
+    # A bare axis name is a TypeError; the axis of a mesh of one rank
+    # averages nothing: the learn step (the value net's included) is the
+    # step without it, bit for bit.
+    with pytest.raises(TypeError, match="make_mesh"):
+        ImplicitQLearning(pmean_axis="dp")
+    _, _, tl, tstate, obs_dim = _iql_pair("pendulum")
+    alone = copy.deepcopy(tstate)
+    _, tbatch = _iql_batch(5, "pendulum", obs_dim, False)
+    axis = make_mesh(1, device="cpu").axis("data")
+    tstate, metrics = dataclasses.replace(tl, pmean_axis=axis).learn_batch(tstate, tbatch)
+    alone, alone_metrics = tl.learn_batch(alone, tbatch)
+    assert compare(tstate, alone, rtol=0, atol=0) == ""
+    assert all(torch.equal(metrics[k], alone_metrics[k]) for k in metrics)
 
 
 def test_discrete_iql_moves_its_value_net_in_every_learn_of_online_learning():

@@ -289,9 +289,10 @@ def test_online_learning_stops_early_and_resumes_from_a_state():
     assert evaluated.agent_state.history_carry.shape == (4, 4)
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"mesh": "data"}])
 def test_online_learning_modes_not_ported_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="item 20"):
+    # `mesh=` takes a mesh of `parallel.make_mesh`, and nothing else.
+    with pytest.raises(TypeError, match="make_mesh"):
         online_learning(_online_agent(), CartPole(), max_steps=16, device="cpu", **kwargs)
 
 

@@ -19,7 +19,13 @@ recommender (tests/test_recsys.py:57-80) and QR-DQN on the mean-variance
 bandit (tests/test_risk_sensitive_and_transformer.py:22-59); and the
 reference's UCI CB suite (`--env cb_suite`: every CB method on every dataset,
 T = 5000 over 10 envs, benchmarks/cb.py's `run_cb_benchmark_suite`; the
-final_avg_regret of each cell). Not collected by pytest; run it:
+final_avg_regret of each cell). `--mesh N` runs a CartPole or Pendulum
+learner data-parallel over N ranks: the JAX package on N virtual CPU devices
+(`make_mesh(N)`), the port in N processes joined by gloo (on `--device`, which
+the ranks share); `--learner mesh_dqn --mesh 2` is the mesh anchor
+(test_convergence.py:289-316: DQN with the default Q-network on 16 envs over
+2 devices), which also prints the learner replicas' spread at the end (0.0:
+bit-identical). Not collected by pytest; run it:
 
     python tests/torch_port_convergence.py --package jax --seeds 42
     python tests/torch_port_convergence.py --package torch --seeds 42 0 1 2 3
@@ -36,6 +42,7 @@ final_avg_regret of each cell). Not collected by pytest; run it:
     python tests/torch_port_convergence.py --package torch --env mean_var_bandit \
         --learner qrdqn_mean_variance --seeds 0
     python tests/torch_port_convergence.py --package torch --env cb_suite --seeds 0 1 2
+    python tests/torch_port_convergence.py --package torch --learner mesh_dqn --mesh 2
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -66,6 +73,9 @@ CARTPOLE_LEARNERS = {
     "double": (dict(training_rounds=4, batch_size=128), None, TD_DRIVER),
     "cql": (dict(is_conservative=True, conservative_alpha=1.0, training_rounds=4,
                  batch_size=128), None, TD_DRIVER),
+    # The mesh anchor (test_convergence.py:289-316), meant for --mesh 2.
+    "mesh_dqn": (dict(training_rounds=4, batch_size=128), None,
+                 dict(TD_DRIVER, max_steps=250_000)),
     "sac": (dict(training_rounds=2, batch_size=100, entropy_coef=0.01, entropy_autotune=False,
                  actor_learning_rate=1e-3, critic_learning_rate=1e-3),
             None, dict(num_envs=16, max_steps=500_000, learn_every_k_steps=2,
@@ -131,8 +141,9 @@ LEARNER_NAMES = {
     "sac": "SoftActorCritic", "ppo": "ProximalPolicyOptimization", "reinforce": "REINFORCE",
     "dueling": "DeepQLearning", "qrdqn": "QuantileRegressionDeepQLearning",
     "sarsa": "DeepSARSA", "double": "DoubleDQN", "cql": "DeepQLearning",
+    "mesh_dqn": "DeepQLearning",
 }
-TD_LEARNERS = ("dueling", "qrdqn", "sarsa", "double", "cql")
+TD_LEARNERS = ("dueling", "qrdqn", "sarsa", "double", "cql", "mesh_dqn")
 
 
 def _modules(package):
@@ -463,9 +474,11 @@ def recsys_env(package, device):
     return recommender_env_from_jax(jenv, device)
 
 
-def run(package, env_name, learner_name, seed, device):
+def run(package, env_name, learner_name, seed, device, mesh=None):
     m = _modules(package)
     extra = {} if package == "jax" else {"device": device}
+    if mesh is not None:
+        extra = {"mesh": mesh}  # the port's mesh carries its device
     if env_name == "cartpole":
         kwargs, rollout, driver = CARTPOLE_LEARNERS[learner_name]
         if kwargs is None:
@@ -565,6 +578,96 @@ def run_cb_suite(package, seed, device):
     return {"final_avg_regret": regrets, "seconds": seconds}
 
 
+def _mesh(package, n):
+    """A mesh of `n` for the JAX package (its virtual CPU devices)."""
+    if n <= 1 or package != "jax":
+        return None
+    from pearl_tpu.parallel import make_mesh
+
+    return make_mesh(n)
+
+
+def replica_spread(package, learner_state, mesh_size):
+    """The largest difference of a learner leaf between two replicas: over the
+    JAX state's stacked device axis, or over the port's ranks (each rank's
+    float64 sum of |leaf| over its leaves, gathered)."""
+    if package == "jax":
+        import jax
+
+        return max(float(np.max(np.abs(np.asarray(x) - np.asarray(x)[0])))
+                   for x in jax.tree.leaves(learner_state.params))
+    import dataclasses
+
+    import torch
+
+    from pearl_tpu_torch.utils.collectives import gather_blocks
+    from pearl_tpu_torch.utils.pytree import named_leaves
+
+    learner_state = dataclasses.replace(learner_state, explore_state=None)
+    leaves = [v.double().abs().sum() for _, v in named_leaves(learner_state)
+              if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    axis = _PORT_MESH["mesh"].axis("data")
+    sums = gather_blocks(torch.stack(leaves).to(axis.device), axis)
+    return float((sums - sums[0]).abs().max())
+
+
+_PORT_MESH = {}
+
+
+def _report(args, seed, res, seconds, mesh_size):
+    """The JSON line of one run of `run`."""
+    extra = {}
+    if args.env == "sparse_reach":
+        # Reached the goal before truncation (test_convergence.py:216).
+        success = np.asarray(res.episode_returns) > -40.0 + 0.5
+        extra = {"success_last_200": float(success[-200:].mean()),
+                 "success_first_200": float(success[:200].mean())}
+    if args.env == "partial_cartpole":
+        # The mean return of the last and the first tenth of the episodes
+        # (at least 20), as the reference's tests take it.
+        r = np.asarray(res.episode_returns)
+        n = max(len(r) // 10, 20)
+        extra = {"mean_last_tenth": float(r[-n:].mean()),
+                 "mean_first_tenth": float(r[:n].mean()),
+                 "anchor_met": bool(r[-n:].mean() > 100.0)}
+    if mesh_size > 1:
+        extra = {"mesh": mesh_size,
+                 "replica_spread": replica_spread(args.package, res.agent_state.learner,
+                                                  mesh_size)}
+    return {
+        "package": args.package, "env": args.env,
+        "learner": args.learner, "seed": seed,
+        "reached_target": bool(res.reached_target), "env_steps": int(res.total_steps),
+        "episodes": int(len(res.episode_returns)),
+        "seconds": round(seconds, 1), **extra,
+    }
+
+
+def _port_mesh_rank(rank, args, seed, url):
+    """One rank of `--mesh N` for the port: joins the gloo world, runs, and
+    rank 0 prints the line."""
+    sys.path.insert(0, REPO)
+    from pearl_tpu_torch.parallel import make_mesh, multihost
+
+    multihost.initialize(url, args.mesh, rank, backend="gloo")
+    mesh = _PORT_MESH["mesh"] = make_mesh(args.mesh, device=args.device, backend="gloo")
+    t0 = time.perf_counter()
+    res = run("torch", args.env, args.learner, seed, args.device, mesh=mesh)
+    line = _report(args, seed, res, time.perf_counter() - t0, args.mesh)
+    if rank == 0:
+        print(json.dumps(line), flush=True)
+
+
+def run_port_mesh(args, seed):
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as directory:
+        mp.spawn(_port_mesh_rank, args=(args, seed, f"file://{directory}/rendezvous"),
+                 nprocs=args.mesh)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
@@ -586,6 +689,8 @@ def main():
                         "on mean_var_bandit; cb_methods (all four) on cb_suite")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
+    parser.add_argument("--mesh", type=int, default=1,
+                        help="data-parallel ranks (CartPole and Pendulum learners)")
     args = parser.parse_args()
     learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
                 "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS,
@@ -596,8 +701,17 @@ def main():
         args.learner = next(iter(learners))
     if args.learner not in learners:
         parser.error(f"--learner {args.learner} does not run on --env {args.env}")
+    if args.mesh > 1:
+        if args.env not in ("cartpole", "pendulum"):
+            parser.error("--mesh runs the CartPole and Pendulum learners")
+        if args.package == "jax":  # before JAX starts: N virtual CPU devices
+            os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                       f" --xla_force_host_platform_device_count={args.mesh}")
     sys.path.insert(0, REPO)
     for seed in args.seeds:
+        if args.mesh > 1 and args.package == "torch":
+            run_port_mesh(args, seed)
+            continue
         if args.env in ENV_ANCHORS:
             numbers = run_env_anchor(args.package, args.env, args.learner, seed, args.device)
             print(json.dumps({"package": args.package, "env": args.env, "learner": args.learner,
@@ -614,28 +728,12 @@ def main():
                               "learner": args.learner, "seed": seed, **numbers}), flush=True)
             continue
         t0 = time.perf_counter()
-        res = run(args.package, args.env, args.learner, seed, args.device)
-        extra = {}
-        if args.env == "sparse_reach":
-            # Reached the goal before truncation (test_convergence.py:216).
-            success = np.asarray(res.episode_returns) > -40.0 + 0.5
-            extra = {"success_last_200": float(success[-200:].mean()),
-                     "success_first_200": float(success[:200].mean())}
-        if args.env == "partial_cartpole":
-            # The mean return of the last and the first tenth of the episodes
-            # (at least 20), as the reference's tests take it.
-            r = np.asarray(res.episode_returns)
-            n = max(len(r) // 10, 20)
-            extra = {"mean_last_tenth": float(r[-n:].mean()),
-                     "mean_first_tenth": float(r[:n].mean()),
-                     "anchor_met": bool(r[-n:].mean() > 100.0)}
-        print(json.dumps({
-            "package": args.package, "env": args.env,
-            "learner": args.learner, "seed": seed,
-            "reached_target": bool(res.reached_target), "env_steps": int(res.total_steps),
-            "episodes": int(len(res.episode_returns)),
-            "seconds": round(time.perf_counter() - t0, 1), **extra,
-        }), flush=True)
+        if args.package == "jax":
+            _modules("jax")  # JAX on the CPU before the mesh takes its devices
+        res = run(args.package, args.env, args.learner, seed, args.device,
+                  mesh=_mesh(args.package, args.mesh))
+        print(json.dumps(_report(args, seed, res, time.perf_counter() - t0, args.mesh)),
+              flush=True)
 
 
 if __name__ == "__main__":
