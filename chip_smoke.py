@@ -171,8 +171,9 @@ Phases, each printing its seconds:
      its population saved for phase 41;
  40. host loops: the multi-head DQN through `agent_online_learning_host`
      on CartPole, one env (steps/s, host syncs a step, B1 at B = 1 in every
-     act), and the Atari topology of examples/atari_dqn.py on SyntheticAtari
-     at 84x84x4 with a 100000-row bf16 replay;
+     act), and the Atari agent of examples_torch/atari_dqn.py (its
+     `make_agent()`) on SyntheticAtari at 84x84x4 with a 100000-row bf16
+     replay;
  41. registry and checkpoint: every METHODS row trained briefly at 4 envs
      and round-tripped through `save`/`restore` with its CUDA generators,
      the population's states, and a conv1-cache agent whose restored cache
@@ -182,7 +183,8 @@ Phases, each printing its seconds:
      the headline agent at its width, one dispatch, bit-equal to phase 13's
      solo warm-up run at the same seed (whole states, return curve), B1 at
      512 tiled + 128 rows; one more dispatch timed alone and one under the
-     sync check (the fetch excluded) and profiled (the idle share);
+     sync check (the fetch excluded) and profiled (the idle share); the
+     mesh then closes the world it made;
  43. dp two ranks: two processes on cuda:0 joined by gloo (NCCL refuses two
      ranks on one card), 65536 envs each (131072 in all):
      `online_learning(mesh=..., check_replication=True)`, a warm-up dispatch
@@ -198,11 +200,19 @@ Phases, each printing its seconds:
  45. ensemble: the registry's BootstrappedDQN (K = 10, batch 128) on a
      (1, 2) mesh of the same two ranks as phase 43, each holding 5 members:
      3 sharded learns equal the unsharded learn within rtol 1e-5 / atol 1e-6.
+ 46. examples: every script of examples_torch/ but atari_dqn (which needs
+     gymnasium and the ROMs; phase 40 builds its agent) through its
+     `main(device="cuda:0")` at a cut budget (`run_examples`): each prints
+     its line and leaves its learner state on the card; multi_chip_dqn on
+     an NCCL mesh of one, closed, then a second world of one; dp_scaling at
+     width 1 on NCCL and at widths 1 and 2 on gloo (two ranks on cuda:0),
+     its replicas byte for byte equal; no process group is left, so the run
+     ends without PyTorch's `destroy_process_group()` warning.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
  13-15, 17-18, 27, 29, 31 and 39 reach B1 as the runner does, 16 and 40
  through their multi-head DQNs, 41 through the registry's MultiHeadDQN row
  (and B2, B7, B3, B6b through its VisualDQN row), 42 and 43 as the driver
- does (43 on each rank); 19-21, 23-26, 28, 30, 32-38, 44 and 45 run plain
+ does (43 on each rank); 19-21, 23-26, 28, 30, 32-38, 44, 45 and 46 run plain
  PyTorch products
  (36-38: matrix products and small Cholesky solves),
  cuDNN's convolutions and LSTM (the reference's are flax stacks that XLA
@@ -4000,15 +4010,15 @@ def run_host_loops(card):
     `agent_online_learning_host` on the port's CartPole, a batch of one:
     steps/s, host syncs per step (two runs of different lengths, so that
     set-up cancels) and B1 at B = 1 in every act (the rows body). (2) The
-    Atari topology at examples/atari_dqn.py:46-67's widths on SyntheticAtari
-    at 84x84x4, one env: the (32, 64, 64) CNN, batch 32, a bfloat16 replay
-    of 100000 rows, a learn every 4 steps after 64 (the example's 10000 cut
-    to fit the phase). gymnasium is not on the card's machine: the adapter
-    and the Atari wrappers are held on the CPU only."""
+    Atari agent of examples_torch/atari_dqn.py, built by its `make_agent()`,
+    on SyntheticAtari at 84x84x4, one env: the (32, 64, 64) CNN, batch 32,
+    a bfloat16 replay of 100000 rows, a learn every 4 steps after 64 (the
+    example's 10000 cut to fit the phase). gymnasium is not on the card's
+    machine: the adapter and the Atari wrappers are held on the CPU only."""
+    from examples_torch.atari_dqn import make_agent as make_atari_agent
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import CartPole, SyntheticAtari
-    from pearl_tpu_torch.neural_networks import CNNQValueNetwork, MultiHeadQValueNetwork
-    from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
+    from pearl_tpu_torch.neural_networks import MultiHeadQValueNetwork
     from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
     from pearl_tpu_torch.replay_buffers import BasicReplayBuffer
     from pearl_tpu_torch.training import agent_online_learning_host
@@ -4046,17 +4056,7 @@ def run_host_loops(card):
           f"{learns} learns) on {card}", flush=True)
     out["counts"] = counts
 
-    atari = PearlAgent(
-        policy_learner=DeepQLearning(
-            q_network=CNNQValueNetwork(input_shape=(84, 84, 4), out_channels=(32, 64, 64),
-                                       kernel_sizes=(8, 4, 3), strides=(4, 2, 1),
-                                       paddings=(0, 0, 0), hidden_dims=(512,)),
-            training_rounds=1, batch_size=32,
-            exploration=EGreedyExploration(start_epsilon=1.0, end_epsilon=0.05,
-                                           warmup_steps=100_000),
-        ),
-        replay_buffer=BasicReplayBuffer(capacity=100_000, bf16_storage=True),
-    )
+    atari = make_atari_agent()
     torch.cuda.reset_peak_memory_stats()
     steps, starts = 400, 64
     t0 = time.perf_counter()
@@ -4235,43 +4235,44 @@ def run_dp_world1(card, driver):
     included), the return curve and the counts bit-equal, B1 at 512 tiled +
     128 rows; then one more mesh dispatch timed alone and one under the
     sync check (the host fetch excluded) and profiled (the idle share
-    against the dispatch timed alone)."""
+    against the dispatch timed alone). The mesh closes the world of one it
+    made."""
     from pearl_tpu_torch.parallel import make_mesh
     from pearl_tpu_torch.utils import compare
 
-    mesh = make_mesh(1, device=DP_DEVICE)
-    assert mesh.backend == ("nccl" if mesh.device.type == "cuda" else "gloo"), mesh
-    agent = headline_agent()
-    solo, solo_wall = driver["warm_up"], driver["warm_up_wall"]
-    reset_fused_counts()
-    dp, dp_wall = timed_driver(agent, 1, seed=0, stats="summary", mesh=mesh)
-    counts = fused_counts()
-    assert counts["by_body"] == driver_body_counts(1), counts
-    for name, a, b in (("agent state", dp.agent_state, solo.agent_state),
-                       ("env states", dp.env_states, solo.env_states)):
-        diff = compare(a, b, rtol=0, atol=0)
-        assert diff == "", f"mesh of one against the solo driver, {name}: {diff}"
-    assert np.array_equal(dp.return_curve, solo.return_curve), "return curves differ"
-    assert (dp.total_episodes, dp.mean_return) == (solo.total_episodes, solo.mean_return)
-    dispatch = driver_dispatcher(agent, dp.agent_state, dp.env_states, "summary", seed=8,
-                                 mesh=mesh)
-    t0 = time.perf_counter()
-    dispatch()
-    torch.cuda.synchronize()
-    alone = time.perf_counter() - t0
-    box = {}
-    events = device_events(lambda: box.update(rows=no_sync(dispatch)))
-    assert box["rows"].shape == (DRV_CPD, 6) and torch.isfinite(box["rows"]).all()
-    prof = profile_fn(None, alone, unit="mesh dispatch", events=events)
-    per = DRV_B * DRV_SPL * DRV_CPD
-    print(f"dp world-1 ({mesh.backend}): bit-equal to the solo driver at seed 0 (whole states, return "
-          f"curve, {dp.total_episodes} episodes); env-steps/s with set-up (the mesh's the "
-          f"communicator's too): solo {per / solo_wall:.1f}, mesh of one {per / dp_wall:.1f}; "
-          f"one mesh dispatch {alone:.3f} s alone ({per / alone:.1f} env-steps/s, "
-          f"{alone / driver['dispatch_s']:.3f}x phase 13's solo dispatch alone, "
-          f"{driver['dispatch_s']:.3f} s), one under the sync check and profiled: no host "
-          f"sync; B1 "
-          f"{counts['launches']} launches, by body {counts['by_body']} on {card}", flush=True)
+    with make_mesh(1, device=DP_DEVICE) as mesh:  # closed, with its world, at the end
+        assert mesh.backend == ("nccl" if mesh.device.type == "cuda" else "gloo"), mesh
+        agent = headline_agent()
+        solo, solo_wall = driver["warm_up"], driver["warm_up_wall"]
+        reset_fused_counts()
+        dp, dp_wall = timed_driver(agent, 1, seed=0, stats="summary", mesh=mesh)
+        counts = fused_counts()
+        assert counts["by_body"] == driver_body_counts(1), counts
+        for name, a, b in (("agent state", dp.agent_state, solo.agent_state),
+                           ("env states", dp.env_states, solo.env_states)):
+            diff = compare(a, b, rtol=0, atol=0)
+            assert diff == "", f"mesh of one against the solo driver, {name}: {diff}"
+        assert np.array_equal(dp.return_curve, solo.return_curve), "return curves differ"
+        assert (dp.total_episodes, dp.mean_return) == (solo.total_episodes, solo.mean_return)
+        dispatch = driver_dispatcher(agent, dp.agent_state, dp.env_states, "summary", seed=8,
+                                     mesh=mesh)
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        alone = time.perf_counter() - t0
+        box = {}
+        events = device_events(lambda: box.update(rows=no_sync(dispatch)))
+        assert box["rows"].shape == (DRV_CPD, 6) and torch.isfinite(box["rows"]).all()
+        prof = profile_fn(None, alone, unit="mesh dispatch", events=events)
+        per = DRV_B * DRV_SPL * DRV_CPD
+        print(f"dp world-1 ({mesh.backend}): bit-equal to the solo driver at seed 0 (whole "
+              f"states, return curve, {dp.total_episodes} episodes); env-steps/s with set-up (the mesh's the "
+              f"communicator's too): solo {per / solo_wall:.1f}, mesh of one {per / dp_wall:.1f}; "
+              f"one mesh dispatch {alone:.3f} s alone ({per / alone:.1f} env-steps/s, "
+              f"{alone / driver['dispatch_s']:.3f}x phase 13's solo dispatch alone, "
+              f"{driver['dispatch_s']:.3f} s), one under the sync check and profiled: no host "
+              f"sync; B1 "
+              f"{counts['launches']} launches, by body {counts['by_body']} on {card}", flush=True)
     return {"counts": counts, "sps": per / dp_wall, "solo_sps": per / solo_wall,
             "dispatch_s": alone, "profile": prof}
 
@@ -4583,6 +4584,178 @@ def finish_dp_anchor(ranks, card):
     return results[0]
 
 
+EXAMPLES = ("dqn_cartpole", "multi_chip_dqn", "dp_scaling", "sac_pendulum", "frozen_lake_dqn",
+            "rc_safety_pendulum", "population_sweep", "recommender_system",
+            "contextual_bandit_linucb", "cb_benchmark")
+# What each script prints at its end.
+EXAMPLE_LINES = {
+    "dqn_cartpole": "last-20 mean return=", "multi_chip_dqn": "replica_spread=0.0",
+    "dp_scaling": " OK ", "sac_pendulum": "last-20 mean return=",
+    "frozen_lake_dqn": "success rate first", "rc_safety_pendulum": "constraint=0.05: return",
+    "population_sweep": "best member: seed", "recommender_system": "BootstrappedDQN+LSTM:",
+    "contextual_bandit_linucb": "NeuralLinUCB   cumulative regret",
+    "cb_benchmark": "offline yeast",
+}
+# Vector steps a driver call (past Pendulum's 200-step episode), the last 16 learning.
+EX_CHUNKS, EX_LEARNING = 224, 16
+EX_BANDIT_STEPS, EX_CB_T, EX_DP_CALLS = 64, 100, 2
+
+
+def state_devices(tree):
+    """The device types of the tensors and module parameters and buffers of
+    a state (optimizers and generators left out: AdamW keeps its step count
+    on the host)."""
+    from torch import nn
+
+    out = set()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.add(x.device.type)
+        elif isinstance(x, nn.Module):
+            out.update(t.device.type for t in list(x.parameters()) + list(x.buffers()))
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return out
+
+
+class _Tee:
+    """Standard output copied into a buffer."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _budget(driver, kw):
+    """The keyword arguments of a driver call at phase 46's budget:
+    EX_CHUNKS vector steps a call on the script's own envs, learning in the
+    last EX_LEARNING."""
+    if driver in ("online_learning", "population_learning"):
+        n = kw["num_envs"]
+        return dict(max_steps=EX_CHUNKS * n, learning_starts=(EX_CHUNKS - EX_LEARNING) * n)
+    if driver == "run_bandit_benchmark":
+        return dict(steps=EX_BANDIT_STEPS)
+    if driver == "run_offline_cb_experiment":
+        return dict(T=500, train_batches=50, num_eval_steps=20)
+    return {}
+
+
+def _cut(driver, orig, states, cut=True):
+    """`orig` at phase 46's budget (with `cut`), the learner state it
+    returns kept in `states`."""
+    def fn(*args, **kw):
+        if cut:
+            kw.update(_budget(driver, kw))
+        out = orig(*args, **kw)
+        if driver == "online_learning":
+            states.append(out.agent_state.learner)
+        elif driver == "population_learning":
+            states.extend(a.learner for a in out.agent_states)
+        elif driver == "run_bandit_benchmark":
+            states.append(out["agent_state"].learner)
+        return out
+    return fn
+
+
+def run_examples(card):
+    """Phase 46: each script of examples_torch/ through its `main(device=
+    "cuda:0")` at a cut budget (its drivers wrapped, as the reference's
+    smoke test wraps them: EX_CHUNKS vector steps a call on the script's own
+    envs, learning in the last EX_LEARNING; the bandits EX_BANDIT_STEPS
+    steps; the CB suite at T = EX_CB_T with the offline protocol at T = 500,
+    50 train batches and 20 evaluation steps; dp_scaling at EX_DP_CALLS
+    timed calls through its own arguments, so that its in-process width and
+    its child ranks run the same budget). Each must print its line and
+    leave its learner state on the card. multi_chip_dqn runs on an NCCL mesh of one, closed at its end, and
+    a second world of one works after it; dp_scaling runs width 1 on NCCL,
+    then widths 1 and 2 on gloo, the two ranks sharing cuda:0 (a correctness
+    run: its rates are no scaling number), every replica equal byte for
+    byte. atari_dqn's main needs gymnasium and the ROMs: phase 40 builds its
+    agent. No example reaches B1 (their Q-networks are VanillaQValueNetwork
+    and the ensemble)."""
+    import contextlib
+    import importlib
+
+    import torch.distributed as dist
+
+    from pearl_tpu_torch.benchmarks import cb
+    from pearl_tpu_torch.parallel import make_mesh
+
+    importlib.import_module("examples_torch.atari_dqn")  # imports without gymnasium
+    on = torch.device(DP_DEVICE).type
+    reset_fused_counts()
+    seconds = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        states, patched = [], []
+        # The CB suite's own calls keep the suite's T; the wrap only keeps
+        # their states.
+        for target, driver, cut in ((mod, "online_learning", True),
+                                    (mod, "population_learning", True),
+                                    (mod, "run_bandit_benchmark", True),
+                                    (mod, "run_offline_cb_experiment", True),
+                                    (cb, "run_bandit_benchmark", False)):
+            if hasattr(target, driver) and name != "dp_scaling":
+                patched.append((target, driver, getattr(target, driver)))
+                setattr(target, driver, _cut(driver, getattr(target, driver), states, cut))
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                if name == "dp_scaling":
+                    rows = mod.main(device=DP_DEVICE, calls=EX_DP_CALLS)
+                    rows += mod.main(device=DP_DEVICE, ranks=2, backend="gloo",
+                                     calls=EX_DP_CALLS)
+                elif name == "cb_benchmark":
+                    mod.main(device=DP_DEVICE, t=EX_CB_T)
+                else:
+                    out = mod.main(device=DP_DEVICE)
+        finally:
+            for target, driver, orig in patched:
+                setattr(target, driver, orig)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        printed = "".join(tee.text)
+        assert EXAMPLE_LINES[name] in printed, f"{name} did not print its line"
+        assert not dist.is_initialized(), f"{name} left a process group open"
+        if name == "dp_scaling":
+            assert [r["devices"] for r in rows] == [1, 1, 2], rows
+            assert all(r["spread"] == 0.0 for r in rows), rows
+            continue
+        if name == "multi_chip_dqn":
+            assert out[1] == 0.0, out[1]
+            with make_mesh(1, device=DP_DEVICE) as again:  # a second world of one
+                assert again.backend == ("nccl" if on == "cuda" else "gloo")
+                assert dist.is_initialized()
+            assert not dist.is_initialized()
+        assert states, f"{name}: no learner state"
+        for state in states:
+            assert state_devices(state) == {on}, (name, state_devices(state))
+    counts = fused_counts()
+    assert counts["launches"] == 0, counts
+    print(f"examples on {DP_DEVICE}: every script printed its line, its learner states on "
+          f"{on}, no process group left; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; B1 launches {counts['launches']} on {card}", flush=True)
+    return seconds
+
+
 def print_kernel_resources(build_dir):
     """Registers and spills of the redesigned kernels, as ptxas reported them
     at this build (the build keeps its output beside each library)."""
@@ -4843,6 +5016,10 @@ def main() -> int:
     t0 = time.perf_counter()
     registry = run_registry_and_checkpoint(card, learning_population)
     phase("registry and checkpoint", t0)
+
+    t0 = time.perf_counter()
+    run_examples(card)
+    phase("examples", t0)
 
     act = timing[ACT_SHAPE[0]]
     kernels = [{

@@ -1,12 +1,15 @@
 """Spaces (port of `pearl_tpu/api/spaces.py`).
 
 Spaces hold small float32 tensors on the CPU; the learner moves a space's
-`elements` to its device once, at init.
+`elements` to its device once, at init. Sampling draws from an explicit
+`torch.Generator` (there is no global RNG) on the generator's device. Masks
+are True = available.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,6 +48,22 @@ class DiscreteSpace:
     def is_continuous(self) -> bool:
         return False
 
+    def sample_index(
+        self, generator: torch.Generator, mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """A 0-dim int64 index, uniform over the elements or, with `mask`
+        (n,), over the available ones; on the generator's device."""
+        device = generator.device
+        if mask is None:
+            return torch.randint(self.n, (), generator=generator, device=device)
+        weights = torch.as_tensor(mask, device=device).to(torch.float32)
+        return torch.multinomial(weights, 1, generator=generator)[0]
+
+    def sample(self, generator: torch.Generator, mask: Optional[torch.Tensor] = None):
+        """The element at `sample_index(generator, mask)`, (element_dim,)."""
+        index = self.sample_index(generator, mask)
+        return self.elements.to(index.device)[index]
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DiscreteActionSpace(DiscreteSpace):
@@ -53,6 +72,11 @@ class DiscreteActionSpace(DiscreteSpace):
     @property
     def action_dim(self) -> int:
         return self.element_dim
+
+    @property
+    def actions_batch(self) -> torch.Tensor:
+        """All actions stacked, (n, action_dim)."""
+        return self.elements
 
     @classmethod
     def discrete(cls, n: int) -> "DiscreteActionSpace":
@@ -83,6 +107,26 @@ class BoxSpace:
     @property
     def is_continuous(self) -> bool:
         return True
+
+    def sample(
+        self, generator: torch.Generator, mask: Optional[torch.Tensor] = None, device=None
+    ) -> torch.Tensor:
+        """(dim,): uniform on the bounded dims, standard normal on the
+        unbounded ones, on `device` (the device of `low` by default; the
+        generator must live there). A mask means nothing to a box and is
+        ignored, as in the reference."""
+        del mask
+        device = self.low.device if device is None else torch.device(device)
+        low, high = self.low.to(device), self.high.to(device)
+        u = torch.rand((self.dim,), generator=generator, device=device)
+        normal = torch.randn((self.dim,), generator=generator, device=device)
+        bounded = torch.isfinite(low) & torch.isfinite(high)
+        span = torch.where(bounded, high - low, torch.zeros_like(low))
+        return torch.where(bounded, low + u * span, normal)
+
+    def clip(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` clamped to [low, high]."""
+        return torch.clamp(x, self.low.to(x.device), self.high.to(x.device))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

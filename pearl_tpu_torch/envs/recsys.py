@@ -62,16 +62,20 @@ class RecommenderEnvironment(Environment):
         slate_size: int = 2,
         episode_length: int = 20,
         history_length: int = 8,
+        device=None,
     ) -> "RecommenderEnvironment":
-        """The catalog and the user model drawn from `generator`, on its
-        device."""
+        """The catalog and the user model drawn from `generator` on its
+        device, and placed on `device` (the generator's by default): a CPU
+        generator gives the same catalog whatever device the env runs on."""
+        device = generator.device if device is None else torch.device(device)
+
         def normal(*shape):
-            return torch.randn(shape, generator=generator, device=generator.device)
+            return torch.randn(shape, generator=generator, device=generator.device).to(device)
 
         return cls(
             items=normal(num_items, item_dim),
             w1=normal(2 * item_dim, hidden) / math.sqrt(2.0 * item_dim),
-            b1=torch.zeros((hidden,), device=generator.device),
+            b1=torch.zeros((hidden,), device=device),
             w2=normal(hidden) / math.sqrt(hidden),
             slate_size=slate_size,
             episode_length=episode_length,

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pearl_tpu_torch.neural_networks.common import dense, lecun_normal_
+from pearl_tpu_torch.neural_networks.common import LayerNorm, dense, lecun_normal_
 
 
 class HistorySummarizationModule(abc.ABC):
@@ -255,21 +255,6 @@ def sinusoidal_positions(length: int, dim: int) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div[: dim // 2])
     return pe[None]
-
-
-class LayerNorm(nn.Module):
-    """flax's `LayerNorm`: eps 1e-6, the variance as E[x^2] - E[x]^2."""
-
-    def __init__(self, dim: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
 
 class CausalSelfAttention(nn.Module):

@@ -1,10 +1,11 @@
 """Common NN building blocks (port of `pearl_tpu/neural_networks/common.py`).
 
-Only what the ported paths use: the activation table with
-`resolve_activation`, the relu MLP with an optional last activation (no
-layer norm, dropout or skip connections), the conv feature
-stack `ConvNet`, `nchw_images`, `select_index_last`, and the two
-initializers of flax's `Dense` and `Conv` layers.
+The activation table with `resolve_activation`, the MLP with every option of
+the reference's (activation, layer norm, dropout, skip connections, the
+initializer, a last activation), flax's `LayerNorm`, `ResidualWrapper`, the
+conv feature stack `ConvNet`, `nchw_images`, `select_index_last`,
+`over_actions`, and the two initializers of flax's `Dense` and `Conv`
+layers.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pearl_tpu_torch.utils.pytree import tree_map
 
 
 def _normalized_softplus(x: torch.Tensor) -> torch.Tensor:
@@ -66,11 +69,45 @@ def dense(d_in: int, d_out: int, generator=None, xavier: bool = True) -> nn.Line
     return layer
 
 
+class LayerNorm(nn.Module):
+    """flax's `LayerNorm`: eps 1e-6, the variance as E[x^2] - E[x]^2."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's `Dropout` when not deterministic: each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), drawn from
+    `generator` (there is no global RNG)."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout with deterministic=False draws from a generator: pass one")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class MLP(nn.Module):
-    """relu hiddens `dense_0 ... dense_{n-1}`, linear `dense_out` followed by
-    `last_activation` (a name of `ACTIVATIONS` or None), xavier-uniform
-    weights and zero biases — the reference `MLP`'s defaults. Layer names
-    match the flax param dict so weights carry across by name."""
+    """Hidden layers `dense_0 ... dense_{n-1}`, then a linear `dense_out`
+    followed by `last_activation` (the reference `MLP`). Each hidden layer
+    is, in the reference's order: dense, layer norm `ln_{i}` (with
+    `use_layer_norm`), dropout (with `dropout_rate` > 0, only when `forward`
+    is called with `deterministic=False`, as flax), `activation`, and then
+    the input added back where `use_skip_connections` and the widths agree.
+    Weights are xavier-uniform (lecun-normal without `use_xavier_init`),
+    biases zero; activations are names of `ACTIVATIONS` or callables. Layer
+    names match the flax param dict so weights carry across by name. The
+    defaults are the plain relu chain, the only one `wb()` hands to
+    `ops.fused_mlp`."""
 
     def __init__(
         self,
@@ -78,35 +115,92 @@ class MLP(nn.Module):
         hidden_dims: Sequence[int],
         output_dim: int = 1,
         generator: Optional[torch.Generator] = None,
-        last_activation: Optional[str] = None,
+        last_activation=None,
+        *,
+        activation="relu",
+        use_layer_norm: bool = False,
+        use_skip_connections: bool = False,
+        dropout_rate: float = 0.0,
+        use_xavier_init: bool = True,
     ):
         super().__init__()
+        self.activation = activation
         self.last_activation = last_activation
+        self.use_layer_norm = use_layer_norm
+        self.use_skip_connections = use_skip_connections
+        self.dropout_rate = dropout_rate
         self.layer_names: List[str] = [f"dense_{i}" for i in range(len(hidden_dims))]
         self.layer_names.append("dense_out")
+        self.norm_names: List[str] = (
+            [f"ln_{i}" for i in range(len(hidden_dims))] if use_layer_norm else []
+        )
         dims = [input_dim, *hidden_dims, output_dim]
         for name, d_in, d_out in zip(self.layer_names, dims[:-1], dims[1:]):
-            self.add_module(name, dense(d_in, d_out, generator))
+            self.add_module(name, dense(d_in, d_out, generator, xavier=use_xavier_init))
+        for name, width in zip(self.norm_names, hidden_dims):
+            self.add_module(name, LayerNorm(width))
 
     def layers(self) -> List[nn.Linear]:
         return [getattr(self, n) for n in self.layer_names]
 
+    @property
+    def is_plain_relu_chain(self) -> bool:
+        """relu hiddens, a linear output, nothing else: what `fused_mlp`
+        computes."""
+        return (
+            resolve_activation(self.activation) is F.relu
+            and self.last_activation is None
+            and not (self.use_layer_norm or self.use_skip_connections or self.dropout_rate > 0)
+        )
+
     def wb(self) -> Tuple[torch.Tensor, ...]:
         """(W1, b1, ..., Wn, bn) in layer order, W in nn.Linear's (out, in)
-        layout — the argument list of `ops.fused_mlp.fused_mlp`."""
+        layout — the argument list of `ops.fused_mlp.fused_mlp`. Only a plain
+        relu chain has one: the kernel computes nothing else."""
+        if not self.is_plain_relu_chain:
+            raise ValueError(
+                "ops.fused_mlp computes the plain relu chain; this MLP has options "
+                f"(activation={self.activation!r}, last_activation={self.last_activation!r}, "
+                f"use_layer_norm={self.use_layer_norm}, use_skip_connections="
+                f"{self.use_skip_connections}, dropout_rate={self.dropout_rate})"
+            )
         out: List[torch.Tensor] = []
         for layer in self.layers():
             out += [layer.weight, layer.bias]
         return tuple(out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, *, deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """`generator` is dropout's, used only with `deterministic=False`."""
+        act = resolve_activation(self.activation)
         layers = self.layers()
-        for layer in layers[:-1]:
-            x = F.relu(promoted_linear(x, layer))
+        for i, layer in enumerate(layers[:-1]):
+            y = promoted_linear(x, layer)
+            if self.use_layer_norm:
+                y = getattr(self, self.norm_names[i])(y)
+            if self.dropout_rate > 0.0 and not deterministic:
+                y = dropout(y, self.dropout_rate, generator)
+            y = act(y)
+            if self.use_skip_connections and x.shape[-1] == y.shape[-1]:
+                y = y + x
+            x = y
         x = promoted_linear(x, layers[-1])
         if self.last_activation is not None:
-            x = ACTIVATIONS[self.last_activation](x)
+            x = resolve_activation(self.last_activation)(x)
         return x
+
+
+class ResidualWrapper(nn.Module):
+    """x + inner(x) (the reference's `ResidualWrapper`)."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.inner(x)
 
 
 def promoted_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -175,3 +269,15 @@ def select_index_last(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor
     values: (N, A); index: (N,) int; returns (N,)."""
     one_hot = F.one_hot(index.long(), values.shape[-1]).to(values.dtype)
     return (values * one_hot).sum(-1)
+
+
+def over_actions(fn, state: torch.Tensor, actions: torch.Tensor, *args):
+    """`fn(state, action, *args)` for every candidate action: state (B, s)
+    and actions (B, A, a) -> (B, A, ...). The state is broadcast across the
+    action axis and (B, A) folded into one batch of B * A rows, so the
+    network sees one product per layer. `fn` returns a tensor or a dict or
+    dataclass of tensors, each reshaped."""
+    B, A = actions.shape[0], actions.shape[1]
+    state_rep = state[:, None, :].expand(B, A, state.shape[-1])
+    out = fn(state_rep.reshape(B * A, -1), actions.reshape(B * A, -1), *args)
+    return tree_map(lambda o: o.reshape((B, A) + o.shape[1:]), out)

@@ -229,12 +229,16 @@ class NeuralLinearRegression:
             linreg=self.linear_regression().init(device),
         )
 
+    def features(self, params: NeuralLinearParams, x: torch.Tensor) -> torch.Tensor:
+        """The learned features of x (N, f): (N, linear_feature_dim)."""
+        return params.mlp(x)
+
     def apply_output_activation(self, x: torch.Tensor) -> torch.Tensor:
         return resolve_activation(self.output_activation)(x)
 
     def forward_with_intermediate_values(self, params: NeuralLinearParams, x: torch.Tensor):
         """(mu before the activation, sigma, learned features) for x (N, f)."""
-        feats = params.mlp(x)
+        feats = self.features(params, x)
         linreg = self.linear_regression()
         L = linreg.factor(params.linreg)
         if self.nn_e2e:

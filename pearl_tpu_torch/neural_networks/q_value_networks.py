@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, nchw_images
+from pearl_tpu_torch.neural_networks.common import MLP, ConvNet, nchw_images, over_actions
 from pearl_tpu_torch.neural_networks.twin_critic import StackedPairQNet
 from pearl_tpu_torch.ops.conv_cache import cache_write, gather_sum
 from pearl_tpu_torch.ops.fused_mlp import fused_mlp_from_module
@@ -35,23 +35,17 @@ from pearl_tpu_torch.ops.ring_conv import ring_conv1, ring_conv_applicable
 
 
 class _PairQNet(nn.Module):
-    """MLP over concat(state, action) -> (N, output_dim) (flax `_PairQNet`)."""
+    """MLP over concat(state, action) -> (N, output_dim) (flax `_PairQNet`),
+    with layer norm in its hidden layers under `use_layer_norm`."""
 
-    def __init__(self, state_dim, action_dim, hidden_dims, generator=None, output_dim=1):
+    def __init__(self, state_dim, action_dim, hidden_dims, generator=None, output_dim=1,
+                 use_layer_norm=False):
         super().__init__()
-        self.MLP_0 = MLP(state_dim + action_dim, hidden_dims, output_dim, generator=generator)
+        self.MLP_0 = MLP(state_dim + action_dim, hidden_dims, output_dim, generator=generator,
+                         use_layer_norm=use_layer_norm)
 
     def forward(self, state, action):
         return self.MLP_0(torch.cat([state, action], dim=-1))
-
-
-def _over_actions(params, state, actions):
-    """`params(state, action)` for every candidate: (B, s) and (B, A, a) ->
-    (B, A, out), as one batch of B * A rows."""
-    B, A = actions.shape[0], actions.shape[1]
-    state_rep = state[:, None, :].expand(B, A, state.shape[-1])
-    out = params(state_rep.reshape(B * A, -1), actions.reshape(B * A, -1))
-    return out.reshape(B, A, -1)
 
 
 class _MultiHeadNet(nn.Module):
@@ -70,13 +64,15 @@ class VanillaQValueNetwork:
     """Q(s, a) via a concat-MLP evaluated over every candidate action."""
 
     hidden_dims: Sequence[int] = (64, 64)
+    use_layer_norm: bool = False
 
     def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
         del num_actions
-        return _PairQNet(state_dim, action_dim, tuple(self.hidden_dims), generator)
+        return _PairQNet(state_dim, action_dim, tuple(self.hidden_dims), generator,
+                         use_layer_norm=self.use_layer_norm)
 
     def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
-        return _over_actions(params, state, actions)[..., 0]
+        return over_actions(params, state, actions)[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +197,7 @@ class QuantileQValueNetwork:
 
     hidden_dims: Sequence[int] = (64, 64)
     num_quantiles: int = 10
+    use_layer_norm: bool = False
 
     def taus(self, device=None) -> torch.Tensor:
         return torch.linspace(0.0, 1.0, self.num_quantiles + 1, device=device)
@@ -212,12 +209,13 @@ class QuantileQValueNetwork:
     def init(self, generator, state_dim: int, action_dim: int, num_actions: int):
         del num_actions
         return _PairQNet(
-            state_dim, action_dim, tuple(self.hidden_dims), generator, self.num_quantiles
+            state_dim, action_dim, tuple(self.hidden_dims), generator, self.num_quantiles,
+            use_layer_norm=self.use_layer_norm,
         )
 
     def quantiles_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
         """(B, A, N) quantile values of every candidate action."""
-        return _over_actions(params, state, actions)
+        return over_actions(params, state, actions)
 
     def q_all(self, params, state, actions, mask: Optional[torch.Tensor] = None):
         """The risk-neutral Q: the mean over quantiles."""

@@ -17,6 +17,7 @@ from pearl_tpu_torch.parallel.data_parallel import (
     DataParallelRunner,
     Mesh,
     make_mesh,
+    replica_spread,
     reshard_agent_state,
 )
 from pearl_tpu_torch.parallel.ensemble_parallel import (
@@ -38,6 +39,7 @@ __all__ = [
     "multihost",
     "pmean",
     "psum",
+    "replica_spread",
     "reshard_agent_state",
     "split_ensemble_state",
 ]

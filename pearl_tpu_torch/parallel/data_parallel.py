@@ -20,7 +20,10 @@ Launch: `torchrun --nproc_per_node=N script.py` (or
 `multihost.initialize(...)` in each process), then `make_mesh(N)` on every
 rank with the same arguments. `make_mesh(1)` in a process with no group
 makes a world of one in-process, so a single process runs the same code path
-(and, on a card, the same NCCL collectives) as each rank of a larger mesh.
+(and, on a card, the same NCCL collectives) as each rank of a larger mesh;
+that mesh owns the world, and its `close()` (or the end of a `with` block)
+destroys it. A mesh over a world it did not make (torchrun's,
+`multihost.initialize`'s, an earlier mesh's) leaves that world alone.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch.distributed as dist
 
 from pearl_tpu_torch.agent.pearl_agent import PearlAgent
 from pearl_tpu_torch.envs.vector import VectorEnv
-from pearl_tpu_torch.utils.collectives import MeshAxis, psum
+from pearl_tpu_torch.utils.collectives import MeshAxis, broadcast_bytes, psum
+from pearl_tpu_torch.utils.pytree import named_leaves
 from pearl_tpu_torch.utils.device import DeviceLike, make_generator, resolve_device
 
 
@@ -44,12 +48,29 @@ from pearl_tpu_torch.utils.device import DeviceLike, make_generator, resolve_dev
 class Mesh:
     """A mesh of ranks as this process sees it: the axes it belongs to
     (`axis(name)`), their sizes (`shape`), this rank's device and the
-    backend. A rank of the world outside the mesh has `member` False."""
+    backend. A rank of the world outside the mesh has `member` False.
+    `world` is the default group when this mesh made it (a world of one),
+    else None; `close()` destroys that group and nothing else."""
 
     axes: Dict[str, Optional[MeshAxis]]
     shape: Dict[str, int]
     device: torch.device
     backend: str
+    world: Optional[object] = dataclasses.field(default=None, repr=False)
+
+    def close(self) -> None:
+        """Destroy the world this mesh made, if it is still the process's
+        world; a no-op for a mesh over a world it did not make, and the
+        second time."""
+        world, self.world = self.world, None
+        if world is not None and dist.is_initialized() and dist.group.WORLD is world:
+            dist.destroy_process_group()
+
+    def __enter__(self) -> "Mesh":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     @property
     def member(self) -> bool:
@@ -87,19 +108,22 @@ def _mesh_device(device: DeviceLike) -> torch.device:
     return resolve_device(device)
 
 
-def _world(n: int, device: torch.device, backend: str) -> int:
-    """The world's size, after making a world of one in-process when there
-    is none and `n` is 1."""
+def _world(n: int, device: torch.device, backend: str):
+    """(the world's size, the default group if this call made it, else
+    None): a world of one is made in-process when there is none and `n` is
+    1."""
+    made = None
     if not dist.is_initialized():
         if n != 1:
             raise RuntimeError(f"make_mesh needs a world of at least {n} ranks: {_launch_hint(n)}")
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+        made = dist.group.WORLD
     world = dist.get_world_size()
     if world < n:
         raise RuntimeError(
             f"a mesh of {n} ranks does not fit the world of {world}: {_launch_hint(n)}"
         )
-    return world
+    return world, made
 
 
 def _group(ranks: List[int], world: int, backend: str):
@@ -123,7 +147,7 @@ def _setup(n: int, device: DeviceLike, backend: Optional[str]):
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return device, backend, _world(n, device, backend)
+    return (device, backend, *_world(n, device, backend))
 
 
 def make_mesh(
@@ -134,13 +158,14 @@ def make_mesh(
     default). The device is `cuda:LOCAL_RANK` unless `device` names one; the
     backend NCCL for a CUDA device and gloo for the CPU unless `backend`
     names one (`backend="gloo"` with a CUDA device for ranks sharing a card).
-    Every rank of the world calls it with the same arguments."""
+    Every rank of the world calls it with the same arguments. A mesh that
+    made a world of one closes it with `close()` or as a context manager."""
     n = n_devices or (dist.get_world_size() if dist.is_initialized() else 1)
-    device, backend, world = _setup(n, device, backend)
+    device, backend, world, made = _setup(n, device, backend)
     ranks = list(range(n))
     group = _group(ranks, world, backend)
     return Mesh(axes={axis: _axis(axis, ranks, group, device)}, shape={axis: n},
-                device=device, backend=backend)
+                device=device, backend=backend, world=made)
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -150,6 +175,22 @@ def rank_seed(seed: int, rank: int) -> int:
     if rank == 0:
         return int(seed)
     return int(np.random.SeedSequence([int(seed), int(rank)]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def replica_spread(tree, axis: MeshAxis) -> float:
+    """The largest |x - x of rank 0| over the floating leaves of `tree` (a
+    rank's learner params, say) and over every rank of `axis`: 0.0 when the
+    replicas agree. Every rank of the axis calls it."""
+    leaves = [leaf.to(axis.device) for _, leaf in named_leaves(tree)
+              if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+    theirs = broadcast_bytes(leaves, axis)
+    spread = torch.zeros((), dtype=torch.float64, device=axis.device)
+    for a, b in zip(leaves, theirs):
+        if a.numel():
+            spread = torch.maximum(spread, (a.double() - b.double()).abs().max())
+    if axis.size > 1:
+        dist.all_reduce(spread, op=dist.ReduceOp.MAX, group=axis.group)
+    return float(spread)
 
 
 def with_pmean_axis(agent: PearlAgent, axis: Optional[MeshAxis]) -> PearlAgent:

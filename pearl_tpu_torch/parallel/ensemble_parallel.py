@@ -49,7 +49,7 @@ def make_2d_mesh(
     model index (its `data` axis) and those of its data index (its `model`
     axis). Every rank of the world calls it with the same arguments."""
     n = data * model
-    device, backend, world = _setup(n, device, backend)
+    device, backend, world, made = _setup(n, device, backend)
     d_name, m_name = axis_names
     axes = {d_name: None, m_name: None}
     for m in range(model):
@@ -58,7 +58,8 @@ def make_2d_mesh(
     for d in range(data):
         ranks = [d * model + m for m in range(model)]
         axes[m_name] = axes[m_name] or _axis(m_name, ranks, _group(ranks, world, backend), device)
-    return Mesh(axes=axes, shape={d_name: data, m_name: model}, device=device, backend=backend)
+    return Mesh(axes=axes, shape={d_name: data, m_name: model}, device=device, backend=backend,
+                world=made)
 
 
 def _slice_learner(learner, members: int):

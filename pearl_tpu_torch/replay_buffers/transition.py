@@ -40,3 +40,16 @@ class TransitionBatch:
     @property
     def done(self) -> torch.Tensor:
         return self.terminated | self.truncated
+
+
+def single_transition(**kwargs) -> TransitionBatch:
+    """A `TransitionBatch` whose batch axis has size 1, made from unbatched
+    leaves (tensors, arrays or numbers). Leaves take JAX's default dtypes:
+    float64 becomes float32 and int64 int32."""
+    narrow = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+    def batched(x):
+        t = torch.as_tensor(x)
+        return t.to(narrow.get(t.dtype, t.dtype))[None]
+
+    return TransitionBatch(**{k: None if v is None else batched(v) for k, v in kwargs.items()})

@@ -70,12 +70,18 @@ from torch import nn
 
 @torch.no_grad()
 def load_flax_mlp(mlp: nn.Module, params: Mapping) -> None:
-    """Copy a flax `MLP` param dict into a `neural_networks.common.MLP`."""
+    """Copy a flax `MLP` param dict (its `dense_{i}`, `dense_out` and, with
+    layer norm, `ln_{i}`) into a `neural_networks.common.MLP`."""
     names = set(params)
-    if names != set(mlp.layer_names):
-        raise ValueError(f"flax MLP layers {sorted(names)} != port layers {mlp.layer_names}")
+    norms = getattr(mlp, "norm_names", [])
+    if names != set(mlp.layer_names) | set(norms):
+        raise ValueError(
+            f"flax MLP layers {sorted(names)} != port layers {mlp.layer_names + norms}"
+        )
     for name, layer in zip(mlp.layer_names, mlp.layers()):
         load_flax_dense(layer, params[name], name)
+    for name in norms:
+        _load_flax_layer_norm(getattr(mlp, name), params[name], name)
 
 
 def _np(x) -> torch.Tensor:

@@ -312,9 +312,9 @@ def test_features_not_ported_raise():
     _, tbatch = _batches(_batch_data(40))
     noise = {k: torch.randn(B, 1, generator=torch.Generator().manual_seed(i))
              for i, k in enumerate(("actor", "critic", "target", "alpha"))}
-    axis = make_mesh(1, device="cpu").axis("data")
-    tstate, metrics = dataclasses.replace(tl, pmean_axis=axis).learn_batch(tstate, tbatch,
-                                                                          noise=noise)
+    with make_mesh(1, device="cpu") as mesh:
+        tstate, metrics = dataclasses.replace(tl, pmean_axis=mesh.axis("data")).learn_batch(
+            tstate, tbatch, noise=noise)
     alone, alone_metrics = tl.learn_batch(alone, tbatch, noise=noise)
     assert compare(tstate, alone, rtol=0, atol=0) == ""
     assert all(torch.equal(metrics[k], alone_metrics[k]) for k in metrics)

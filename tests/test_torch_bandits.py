@@ -31,6 +31,9 @@ from pearl_tpu.api.spaces import DiscreteActionSpace as JaxDiscrete
 from pearl_tpu.envs import bandit as jax_bandit
 from pearl_tpu.neural_networks import common as jax_common
 from pearl_tpu.neural_networks.contextual_bandit import LinearRegression as JaxLinReg
+from pearl_tpu.neural_networks.contextual_bandit import (
+    NeuralLinearRegression as JaxNeuralLinReg,
+)
 from pearl_tpu.policy_learners import contextual_bandits as jcb
 from pearl_tpu.policy_learners.exploration_modules import contextual_bandits as jexp
 from pearl_tpu.replay_buffers.replay_buffer import BasicReplayBuffer as JaxBuffer
@@ -46,7 +49,11 @@ from pearl_tpu_torch.envs import (
     SLCBState,
 )
 from pearl_tpu_torch.neural_networks import ACTIVATIONS, resolve_activation
-from pearl_tpu_torch.neural_networks.contextual_bandit import LinearRegression, append_ones
+from pearl_tpu_torch.neural_networks.contextual_bandit import (
+    LinearRegression,
+    NeuralLinearRegression,
+    append_ones,
+)
 from pearl_tpu_torch.policy_learners.contextual_bandits import (
     DisjointBanditContainer,
     DisjointLinearBandit,
@@ -653,6 +660,26 @@ def test_neural_linear_bandit_three_steps_match_jax(nn_e2e, activation, separate
     _, jchoice = jts.act(jstate, ctx, None, key)
     _, choice = ts.act(state, _t(ctx), None, None, noise=_t(jax.random.normal(key, (16, 5))))
     np.testing.assert_array_equal(choice.index.numpy(), _np(jchoice.index))
+
+
+@pytest.mark.parametrize("nn_e2e", [True, False])
+def test_neural_linear_regression_features_match_jax(nn_e2e):
+    """`features` is the MLP's output (relu last activation), and
+    `forward_with_intermediate_values` returns it as its third value."""
+    cfg = dict(feature_dim=6, hidden_dims=(16, 8), linear_feature_dim=4, nn_e2e=nn_e2e)
+    jmodel, model = JaxNeuralLinReg(**cfg), NeuralLinearRegression(**cfg)
+    jparams = jmodel.init(jax.random.PRNGKey(2))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    load_flax_mlp(params.mlp, jax.tree.map(np.asarray, jparams["mlp"]))
+    load_flax_mlp(params.head, jax.tree.map(np.asarray, jparams["head"]))
+    x = np.random.default_rng(6).normal(size=(11, 6)).astype(np.float32)
+    with torch.no_grad():
+        feats = model.features(params, _t(x))
+        third = model.forward_with_intermediate_values(params, _t(x))[2]
+    ref = _np(jmodel.features(jparams, jnp.asarray(x)))
+    assert feats.shape == ref.shape == (11, 4) and (ref >= 0).all()
+    np.testing.assert_allclose(feats.numpy(), ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(third, feats)
 
 
 # -------------------------------------------------------- disjoint container

@@ -3,8 +3,13 @@ carried across with `pearl_tpu_torch.utils.jax_params` give the same `q_all`
 for `MultiHeadQValueNetwork` and `VanillaQValueNetwork`, the same actions,
 samples (on the same normal draws) and log-probabilities for the continuous
 actors, and the same `q_both`/`q_min` for `TwinCritic`; the inits and
-`select_index_last` follow the reference.
+`select_index_last` follow the reference. The MLP's options (layer norm,
+skip connections, another activation, lecun init, dropout), `ResidualWrapper`,
+`over_actions` and the Q-networks' `use_layer_norm` give JAX's values and
+gradients, and an MLP with options never reaches `ops.fused_mlp`.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -16,9 +21,15 @@ from pearl_tpu.neural_networks.actor_networks import (
     GaussianActorNetwork as JaxGaussian,
     VanillaContinuousActorNetwork as JaxDeterministic,
 )
+import flax.linen as flax_nn
+
+from pearl_tpu.neural_networks.common import MLP as JaxMLP
+from pearl_tpu.neural_networks.common import ResidualWrapper as JaxResidualWrapper
+from pearl_tpu.neural_networks.common import over_actions as jax_over_actions
 from pearl_tpu.neural_networks.common import select_index_last as jax_select
 from pearl_tpu.neural_networks.q_value_networks import (
     MultiHeadQValueNetwork as JaxMultiHead,
+    QuantileQValueNetwork as JaxQuantile,
     VanillaQValueNetwork as JaxVanilla,
 )
 from pearl_tpu.neural_networks.twin_critic import TwinCritic as JaxTwin
@@ -26,14 +37,19 @@ from pearl_tpu_torch.neural_networks import (
     MLP,
     GaussianActorNetwork,
     MultiHeadQValueNetwork,
+    QuantileQValueNetwork,
     TwinCritic,
     VanillaContinuousActorNetwork,
     VanillaQValueNetwork,
     select_index_last,
 )
+from pearl_tpu_torch.neural_networks.common import ResidualWrapper, dense, dropout, over_actions
+from pearl_tpu_torch.ops.fused_mlp import fused_mlp_from_module
 from pearl_tpu_torch.utils.jax_params import (
+    load_flax_dense,
     load_flax_deterministic_actor_params,
     load_flax_gaussian_actor_params,
+    load_flax_mlp,
     load_flax_q_params,
     load_flax_twin_critic_params,
 )
@@ -275,3 +291,202 @@ def test_mlp_last_activation():
     plain = MLP(3, (8,), 4, generator=torch.Generator().manual_seed(0))
     x = torch.randn(5, 3, generator=torch.Generator().manual_seed(1)) * 10
     torch.testing.assert_close(mlp(x), torch.tanh(plain(x)), rtol=0, atol=0)
+
+
+# The MLP's options. flax's and the port's products sum in other orders:
+# rtol 1e-5, atol 1e-6 for values and gradients near zero.
+OPT_TOL = dict(rtol=1e-5, atol=1e-6)
+MLP_OPTIONS = {
+    "layer_norm": dict(use_layer_norm=True),
+    "skips": dict(use_skip_connections=True),
+    "layer_norm_and_skips": dict(use_layer_norm=True, use_skip_connections=True),
+    "tanh": dict(activation="tanh"),
+    "lecun": dict(use_xavier_init=False),
+}
+
+
+def _perturbed(params, seed):
+    """flax params with every layer norm's scale and bias moved off 1 and 0,
+    so that carrying them is tested."""
+    rng = np.random.default_rng(seed)
+    out = _np_tree(params)
+    for name, leaves in out.items():
+        if name.startswith("ln_"):
+            leaves["scale"] = (1.0 + 0.3 * rng.standard_normal(leaves["scale"].shape)).astype(
+                np.float32)
+            leaves["bias"] = (0.2 * rng.standard_normal(leaves["bias"].shape)).astype(np.float32)
+    return out
+
+
+def _mlp_pair(options, hidden=(8, 8, 16), in_dim=8, out_dim=3, seed=0):
+    jmlp = JaxMLP(hidden_dims=hidden, output_dim=out_dim, **options)
+    params = _perturbed(jmlp.init(jax.random.PRNGKey(seed), jnp.zeros((1, in_dim)))["params"],
+                        seed)
+    mlp = MLP(in_dim, hidden, out_dim, generator=torch.Generator().manual_seed(seed), **options)
+    load_flax_mlp(mlp, params)
+    return jmlp, params, mlp
+
+
+def _assert_close_to_jax(ours, ref, exact):
+    """`ours` within OPT_TOL of JAX's `ref`, plus twice JAX's own distance
+    from the float64 value `exact`: through layer norm, float32 rounding of
+    either package reaches 1e-5 of a gradient (as for the transformer's,
+    tests/test_torch_history.py). JAX's own error is held first, so that a
+    wrong formula cannot widen the bound."""
+    ours, ref, exact = (np.asarray(a, np.float64) for a in (ours, ref, exact))
+    ref_err = np.abs(ref - exact)
+    assert ref_err.max() <= OPT_TOL["rtol"] * max(1.0, np.abs(exact).max()), ref_err.max()
+    bound = OPT_TOL["atol"] + OPT_TOL["rtol"] * np.abs(ref) + 2 * ref_err
+    worst = np.max(np.abs(ours - ref) - bound)
+    assert worst <= 0, f"beyond the bound by {worst}"
+
+
+@pytest.mark.parametrize("name", sorted(MLP_OPTIONS))
+def test_mlp_options_match_jax_forward_and_grads(name):
+    """Widths 8 -> 8 -> 8 -> 16: skips apply at layers 0 and 1 (layer 0's
+    input width equals the first hidden width), not at layer 2."""
+    jmlp, params, mlp = _mlp_pair(MLP_OPTIONS[name])
+    x = np.random.default_rng(1).standard_normal((17, 8)).astype(np.float32)
+
+    def jax_loss(p, x):
+        y = jmlp.apply({"params": p}, x)
+        return jnp.sum(jnp.sin(y)), y
+
+    (_, ref), (jgrads, jgx) = jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+
+    def port(module, dtype):
+        xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+        y = module(xt)
+        torch.sin(y).sum().backward()
+        return y.detach(), xt.grad, dict(module.named_parameters())
+
+    y, gx, named = port(mlp, torch.float32)
+    y64, gx64, named64 = port(copy.deepcopy(mlp).double(), torch.float64)
+    _assert_close_to_jax(y, ref, y64)
+    _assert_close_to_jax(gx, jgx, gx64)
+    names = set()
+    for layer, leaves in jgrads.items():
+        for leaf, g in leaves.items():
+            name = f"{layer}.{ {'kernel': 'weight'}.get(leaf, leaf) }"
+            names.add(name)
+            flip = (lambda a: a.T) if leaf == "kernel" else (lambda a: a)
+            _assert_close_to_jax(flip(named[name].grad.numpy()), g,
+                                 flip(named64[name].grad.numpy()))
+    assert set(named) == names
+
+
+def test_mlp_lecun_init_is_a_truncated_normal():
+    mlp = MLP(256, (256,), 256, generator=torch.Generator().manual_seed(0),
+              use_xavier_init=False)
+    for layer in mlp.layers():
+        w = layer.weight.detach()
+        std = np.sqrt(1.0 / w.shape[1])
+        assert w.abs().max() <= 2 * std / 0.87962566103423978
+        assert abs(w.std().item() - std) < 0.05 * std
+        assert (layer.bias == 0).all()
+
+
+def test_mlp_options_draw_what_the_plain_mlp_draws():
+    """Layer norm (scale 1, bias 0) and dropout draw nothing at init: every
+    dense layer is the plain MLP's, which is `dense` called in layer order."""
+    plain = MLP(5, (8, 8), 3, generator=torch.Generator().manual_seed(0))
+    options = MLP(5, (8, 8), 3, generator=torch.Generator().manual_seed(0), use_layer_norm=True,
+                  use_skip_connections=True, dropout_rate=0.5, activation="tanh")
+    g = torch.Generator().manual_seed(0)
+    by_hand = [dense(5, 8, g), dense(8, 8, g), dense(8, 3, g)]
+    for a, b, c in zip(plain.layers(), options.layers(), by_hand):
+        for t in ("weight", "bias"):
+            assert torch.equal(getattr(a, t), getattr(b, t))
+            assert torch.equal(getattr(a, t), getattr(c, t))
+    assert options.norm_names == ["ln_0", "ln_1"] and plain.norm_names == []
+    assert (options.ln_0.scale == 1).all() and (options.ln_0.bias == 0).all()
+
+
+def test_mlp_dropout_is_off_unless_asked_and_drops_its_rate():
+    _, params, mlp = _mlp_pair({"dropout_rate": 0.3})
+    jmlp = JaxMLP(hidden_dims=(8, 8, 16), output_dim=3, dropout_rate=0.3)
+    x = np.random.default_rng(2).standard_normal((9, 8)).astype(np.float32)
+    ref = np.asarray(jmlp.apply({"params": jax.tree.map(jnp.asarray, params)}, jnp.asarray(x)))
+    plain = MLP(8, (8, 8, 16), 3)
+    load_flax_mlp(plain, params)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        off = mlp(xt)  # deterministic by default, as flax
+        np.testing.assert_allclose(off.numpy(), ref, **OPT_TOL)
+        assert torch.equal(off, plain(xt))
+        on = mlp(xt, deterministic=False, generator=torch.Generator().manual_seed(3))
+        again = mlp(xt, deterministic=False, generator=torch.Generator().manual_seed(3))
+        assert torch.equal(on, again) and not torch.equal(on, off)
+        with pytest.raises(ValueError, match="generator"):
+            mlp(xt, deterministic=False)
+    n, rate = 200_000, 0.3
+    kept = dropout(torch.ones(n), rate, torch.Generator().manual_seed(4))
+    dropped = (kept == 0).float().mean().item()
+    assert abs(dropped - rate) < 3 * np.sqrt(rate * (1 - rate) / n)
+    torch.testing.assert_close(kept[kept != 0], torch.full_like(kept[kept != 0], 1 / 0.7))
+    assert (dropout(torch.ones(8), 1.0, None) == 0).all()  # flax's rate 1
+
+
+def test_residual_wrapper_and_over_actions_match_jax():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 4)).astype(np.float32)
+    jres = JaxResidualWrapper(inner=flax_nn.Dense(4))
+    params = _np_tree(jres.init(jax.random.PRNGKey(0), jnp.zeros((1, 4)))["params"])
+    ref = np.asarray(jres.apply({"params": jax.tree.map(jnp.asarray, params)}, jnp.asarray(x)))
+    inner = dense(4, 4)
+    load_flax_dense(inner, params["inner"], "inner")
+    with torch.no_grad():
+        ours = ResidualWrapper(inner)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(ours, ref, **OPT_TOL)
+
+    state = rng.standard_normal((5, 3)).astype(np.float32)
+    actions = rng.standard_normal((5, 7, 2)).astype(np.float32)
+    jmlp, mparams, mlp = _mlp_pair({}, hidden=(8,), in_dim=5, out_dim=2)
+    japply = lambda s, a: jmlp.apply(  # noqa: E731
+        {"params": jax.tree.map(jnp.asarray, mparams)}, jnp.concatenate([s, a], -1))
+    ref = np.asarray(jax_over_actions(japply, jnp.asarray(state), jnp.asarray(actions)))
+    with torch.no_grad():
+        out = over_actions(lambda s, a, k: {"q": mlp(torch.cat([s, a], -1)) * k},
+                           torch.from_numpy(state), torch.from_numpy(actions), 1.0)
+    assert out["q"].shape == ref.shape == (5, 7, 2)
+    np.testing.assert_allclose(out["q"].numpy(), ref, **OPT_TOL)
+
+
+@pytest.mark.parametrize("jax_net,net", [(JaxVanilla, VanillaQValueNetwork),
+                                         (JaxQuantile, QuantileQValueNetwork)])
+def test_q_networks_with_layer_norm_match_jax(jax_net, net):
+    state, actions = _inputs(B=21)
+    jnet = jax_net(use_layer_norm=True)
+    params = jnet.init(jax.random.PRNGKey(4), 4, 3, 3)
+    params = {"MLP_0": _perturbed(params["MLP_0"], 4)}
+    tnet = net(use_layer_norm=True)
+    module = tnet.init(torch.Generator().manual_seed(0), 4, 3, 3)
+    assert module.MLP_0.norm_names == ["ln_0", "ln_1"]
+    load_flax_q_params(module, params)
+    jparams = jax.tree.map(jnp.asarray, params)
+    with torch.no_grad():
+        q = tnet.q_all(module, torch.from_numpy(state), torch.from_numpy(actions)).numpy()
+    ref = np.asarray(jnet.q_all(jparams, jnp.asarray(state), jnp.asarray(actions)))
+    np.testing.assert_allclose(q, ref, **OPT_TOL)
+    if net is QuantileQValueNetwork:
+        with torch.no_grad():
+            quantiles = tnet.quantiles_all(module, torch.from_numpy(state),
+                                           torch.from_numpy(actions)).numpy()
+        ref = np.asarray(jnet.quantiles_all(jparams, jnp.asarray(state), jnp.asarray(actions)))
+        np.testing.assert_allclose(quantiles, ref, **OPT_TOL)
+    with pytest.raises(ValueError):  # a tree without the layer norms
+        load_flax_q_params(module, {"MLP_0": {k: v for k, v in params["MLP_0"].items()
+                                              if not k.startswith("ln_")}})
+
+
+@pytest.mark.parametrize("options", [dict(use_layer_norm=True), dict(use_skip_connections=True),
+                                     dict(dropout_rate=0.1), dict(activation="tanh"),
+                                     dict(last_activation="relu")])
+def test_an_mlp_with_options_never_reaches_fused_mlp(options):
+    mlp = MLP(4, (8, 8), 2, **options)
+    with pytest.raises(ValueError, match="plain relu chain"):
+        mlp.wb()
+    with pytest.raises(ValueError, match="plain relu chain"):
+        fused_mlp_from_module(mlp, torch.zeros(3, 4))
+    assert len(MLP(4, (8, 8), 2, use_xavier_init=False).wb()) == 6  # init only

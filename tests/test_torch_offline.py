@@ -200,8 +200,9 @@ def test_iql_pmean_axis_raises():
     _, _, tl, tstate, obs_dim = _iql_pair("pendulum")
     alone = copy.deepcopy(tstate)
     _, tbatch = _iql_batch(5, "pendulum", obs_dim, False)
-    axis = make_mesh(1, device="cpu").axis("data")
-    tstate, metrics = dataclasses.replace(tl, pmean_axis=axis).learn_batch(tstate, tbatch)
+    with make_mesh(1, device="cpu") as mesh:
+        tstate, metrics = dataclasses.replace(tl, pmean_axis=mesh.axis("data")).learn_batch(
+            tstate, tbatch)
     alone, alone_metrics = tl.learn_batch(alone, tbatch)
     assert compare(tstate, alone, rtol=0, atol=0) == ""
     assert all(torch.equal(metrics[k], alone_metrics[k]) for k in metrics)

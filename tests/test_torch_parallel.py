@@ -14,7 +14,9 @@ tolerance (rtol 1e-4, atol 1e-5; LinUCB's statistics at the bandit tests'
 tolerance, float64 against JAX's float32).
 
 In-process: `online_learning(mesh=make_mesh(1))` equals the solo driver bit
-for bit, and `multihost.initialize()` is a no-op without a cluster.
+for bit, and `multihost.initialize()` is a no-op without a cluster. A mesh
+that made a world of one tears it down at `close()` (every test here closes
+the world it makes), and a mesh over a world it did not make leaves it open.
 """
 
 import copy
@@ -463,8 +465,9 @@ def test_mesh_of_one_is_the_solo_driver_bit_for_bit(stats):
     kw = dict(num_envs=8, max_steps=1024, learn_every_k_steps=4, chunks_per_dispatch=2, seed=3,
               stats=stats, curve_capacity=64, target_return=25.0, target_window=4)
     solo = online_learning(_online_agent(), CartPole(), device="cpu", **kw)
-    mesh = online_learning(_online_agent(), CartPole(), mesh=make_mesh(1, device="cpu"),
-                           check_replication=True, **kw)
+    with make_mesh(1, device="cpu") as world_of_one:
+        mesh = online_learning(_online_agent(), CartPole(), mesh=world_of_one,
+                               check_replication=True, **kw)
     _assert_bit_equal(mesh.agent_state, solo.agent_state)
     _assert_bit_equal(mesh.env_states, solo.env_states)
     for field in ("total_steps", "total_episodes", "reached_target", "mean_return",
@@ -477,9 +480,40 @@ def test_mesh_of_one_is_the_solo_driver_bit_for_bit(stats):
 
 
 def test_a_mesh_of_more_ranks_than_the_world_names_the_launch():
-    make_mesh(1, device="cpu")  # the world of one this process has from here on
+    with make_mesh(1, device="cpu"):  # a world of one, closed at the end
+        with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
+            make_mesh(2, device="cpu")
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
-        make_mesh(2, device="cpu")
+        make_mesh(2, device="cpu")  # and with no world at all
+
+
+def test_a_mesh_tears_down_the_world_it_made_and_no_other():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    mesh = make_mesh(1, device="cpu")
+    assert dist.is_initialized() and dist.get_world_size() == 1
+    mesh.close()
+    assert not dist.is_initialized()
+    mesh.close()  # twice is a no-op
+    assert not dist.is_initialized()
+    with make_mesh(1, device="cpu") as again:  # a second world of one works
+        assert again.axis("data").size == 1 and dist.is_initialized()
+        # A mesh over a world it did not make leaves that world open.
+        other = make_mesh(1, device="cpu")
+        other.close()
+        with make_mesh(1, device="cpu"):
+            pass
+        assert dist.is_initialized() and dist.group.WORLD is again.world
+    assert not dist.is_initialized()
+    # A world this process joined itself (as torchrun's) outlives every mesh.
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with make_mesh(1, device="cpu") as joined:
+            assert joined.world is None
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_multihost_initialize_is_a_no_op_without_a_cluster(monkeypatch):
@@ -499,12 +533,12 @@ def test_multihost_initialize_is_a_no_op_without_a_cluster(monkeypatch):
 def test_pmean_axis_averages_nothing_alone():
     """A learner's gradient step with the axis of a mesh of one is its step
     without one, bit for bit."""
-    axis = make_mesh(1, device="cpu").axis("data")
     jl, _, tl, tstate = dqn_learners("dqn_vanilla")
     other = copy.deepcopy(tstate)
     batch = _port_batch(cartpole_data(64, seed=5))
     a, ma = tl.learn_batch(tstate, batch)
-    b, mb = dataclasses.replace(tl, pmean_axis=axis).learn_batch(other, batch)
+    with make_mesh(1, device="cpu") as mesh:
+        b, mb = dataclasses.replace(tl, pmean_axis=mesh.axis("data")).learn_batch(other, batch)
     _assert_bit_equal(a, b)
     assert torch.equal(ma["loss"], mb["loss"])
     assert torch.equal(ma["per_sample_td"], mb["per_sample_td"])

@@ -37,6 +37,7 @@ from pearl_tpu.replay_buffers.replay_buffer import (
     SingleTransitionReplayBuffer as JaxSingle,
 )
 from pearl_tpu.replay_buffers.transition import TransitionBatch as JaxBatch
+from pearl_tpu.replay_buffers.transition import single_transition as jax_single_transition
 from pearl_tpu.replay_buffers.visual import VisualReplayBuffer as JaxVisual
 from pearl_tpu_torch.agent import PearlAgent
 from pearl_tpu_torch.envs import (
@@ -58,6 +59,7 @@ from pearl_tpu_torch.replay_buffers import (
     VisualReplayBuffer,
 )
 from pearl_tpu_torch.replay_buffers.prioritized import last_occurrence_values
+from pearl_tpu_torch.replay_buffers.transition import single_transition
 from pearl_tpu_torch.training import make_compiled_runner, online_learning
 from pearl_tpu_torch.utils import make_generator
 from pearl_tpu_torch.utils.jax_params import load_flax_q_params
@@ -169,6 +171,34 @@ def test_single_transition_buffer_holds_the_last_row():
         assert (tstate.cursor, tstate.size) == (int(jstate.cursor), int(jstate.size)) == (0, 1)
     got = tbuf.sample(tstate, torch.Generator().manual_seed(0), 4)
     _assert_batch_equal(got, jbuf.sample(jstate, jax.random.PRNGKey(0), 4))
+
+
+def test_single_transition_equals_jax():
+    """Unbatched leaves (arrays, numbers, a tensor) gain a batch axis of 1,
+    with JAX's default dtypes: float64 becomes float32, int64 int32."""
+    rng = np.random.default_rng(3)
+    leaves = dict(
+        state=rng.standard_normal(4),  # float64
+        action=np.array([1.0], np.float32),
+        reward=0.5,
+        next_state=rng.standard_normal(4).astype(np.float32),
+        terminated=True,
+        truncated=np.bool_(False),
+        action_index=np.int64(1),
+        curr_available_mask=np.array([True, False]),
+        weight=None,
+    )
+    ours = single_transition(**{**leaves, "next_state": torch.from_numpy(leaves["next_state"])})
+    ref = jax_single_transition(**leaves)
+    assert ours.batch_size == 1 and ours.weight is None and ref.weight is None
+    for field in dataclasses.fields(ref):
+        r = getattr(ref, field.name)
+        if r is None:
+            assert getattr(ours, field.name) is None, field.name
+            continue
+        o = getattr(ours, field.name).numpy()
+        assert o.shape == np.asarray(r).shape and o.dtype == np.asarray(r).dtype, field.name
+        np.testing.assert_array_equal(o, np.asarray(r), err_msg=field.name)
 
 
 # ------------------------------------------------------------------ packed

@@ -644,7 +644,9 @@ def _imports(path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted((REPO / "pearl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples_torch").glob("*.py"))
+    assert len(examples) == 11
+    files = sorted((REPO / "pearl_tpu_torch").rglob("*.py")) + examples + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     banned = ("jax", "flax", "optax", "pearl_tpu")
     for path in files:
