@@ -208,10 +208,18 @@ Phases, each printing its seconds:
      width 1 on NCCL and at widths 1 and 2 on gloo (two ranks on cuda:0),
      its replicas byte for byte equal; no process group is left, so the run
      ends without PyTorch's `destroy_process_group()` warning.
+ 47. learning signal and fixed point: every METHODS row, and the example
+     row of pearl_tpu_torch/EXTENDING.md, through the reference's
+     frozen-target check on the card (4 envs; the loss above 1e-3 at the
+     start, under 0.15 of it at the end, 0.30 for CNNDQN and CQL, a |TD|
+     under 0.5), one line a row; DQN, Double DQN and deep SARSA at the
+     Bellman fixed point 1 / (1 - gamma) = 10, and the gamma 0.45 control
+     at 1.82; B1 counted over the MultiHeadDQN row, B2, B7, B3 and B6b over
+     the VisualDQN row.
  Phases 7-12 reach no kernel of the port (their products are PyTorch's);
  13-15, 17-18, 27, 29, 31 and 39 reach B1 as the runner does, 16 and 40
- through their multi-head DQNs, 41 through the registry's MultiHeadDQN row
- (and B2, B7, B3, B6b through its VisualDQN row), 42 and 43 as the driver
+ through their multi-head DQNs, 41 and 47 through the registry's MultiHeadDQN
+ row (and B2, B7, B3, B6b through its VisualDQN row), 42 and 43 as the driver
  does (43 on each rank); 19-21, 23-26, 28, 30, 32-38, 44, 45 and 46 run plain
  PyTorch products
  (36-38: matrix products and small Cholesky solves),
@@ -4073,26 +4081,6 @@ def run_host_loops(card):
     return out
 
 
-def registry_env(method, agent):
-    """The env family of a registry row, as the reference's breadth test
-    pairs them (tests/test_all_methods_matrix.py:17-47)."""
-    from pearl_tpu_torch import envs
-
-    if method.env_family == "visual":
-        return envs.Breakout()
-    if method.env_family == "visual_frames":
-        return envs.SyntheticAtari(height=12, width=12, frames=1, episode_len=32)
-    if agent.store_cost and method.continuous:
-        return envs.Pendulum(emit_torque_cost=True)
-    if agent.store_cost:
-        return envs.SafetyWrapper(envs.CartPole(), risky_fn=lambda obs, action: obs[..., 0] > 0.5)
-    if method.continuous:
-        return envs.Pendulum()
-    if agent.track_available_masks:
-        return envs.DynamicActionSpaceWrapper(envs.CartPole(), interval=4, num_masked=1)
-    return envs.CartPole()
-
-
 def roundtrip(state, directory, name):
     """`save` and `restore` of a state: the restored state equals it, and
     every restored generator draws what the saved one draws next."""
@@ -4127,6 +4115,7 @@ def run_registry_and_checkpoint(card, population):
 
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.benchmarks import METHODS
+    from pearl_tpu_torch.benchmarks.guarantees import env_for_method
     from pearl_tpu_torch.envs import SyntheticAtari, VectorEnv
     from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummarization
     from pearl_tpu_torch.neural_networks import CNNQValueNetwork
@@ -4145,7 +4134,7 @@ def run_registry_and_checkpoint(card, population):
     with tempfile.TemporaryDirectory() as directory:
         for name, method in sorted(METHODS.items()):
             agent = method.make_agent(n_envs)
-            env = registry_env(method, agent)
+            env = env_for_method(method, agent)
             rollout = method.on_policy_rollout
             if rollout is not None:
                 rollout = 16
@@ -4204,6 +4193,105 @@ def run_registry_and_checkpoint(card, population):
         print(f"checkpoint: a conv1_cache visual agent restored whole; its cache against a "
               f"refresh from the restored weights: max abs diff {err:.3e} (held to 2e-4) on "
               f"{card}", flush=True)
+    return counts
+
+
+# Phase 47: pearl_tpu_torch/EXTENDING.md, whose two code blocks are the
+# example learner and its registry row.
+EXTENDING_DOC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "pearl_tpu_torch",
+                             "EXTENDING.md")
+
+
+def extending_example():
+    """The `Method` row of EXTENDING.md's `ClippedRewardDQN`, built from the
+    document's code blocks as written (the learner block as a module, the
+    row block as an entry of `configs`' METHODS dict)."""
+    import re
+
+    from pearl_tpu_torch.benchmarks import configs
+
+    with open(EXTENDING_DOC) as f:
+        learner_block, row_block = re.findall(r"```python\n(.*?)```", f.read(), re.S)
+    scope = {}
+    exec(learner_block, scope)
+    scope = {**vars(configs), "ClippedRewardDQN": scope["ClippedRewardDQN"]}
+    exec("rows = {\n" + row_block + "}", scope)
+    (row,) = scope["rows"].values()
+    return row
+
+
+def run_learning_signal(card):
+    """Phase 47. Every METHODS row through the frozen-target check on
+    cuda:0 (tests/test_learning_signal_matrix.py: 32 steps a env of rollouts
+    at 4 envs, 16 for on-policy rows, the targets frozen, 60 learns, 90 for
+    visual rows), one line a row: the loss must start above 1e-3, fall under
+    0.15 of its start (0.30 for CNNDQN and CQL), and a |TD| end under 0.5.
+    Then the TD fixed points (tests/test_td_discount_calibration.py: DQN,
+    Double DQN and deep SARSA at gamma 0.9 within 0.5 of 10 after 800
+    learns, DQN at 0.45 within 0.5 of 1.82 and more than 5 from 10), then
+    EXTENDING.md's example row. B1 counted over the MultiHeadDQN row's acts
+    and learns, B2, B7, B3 and B6b over the VisualDQN row's. Every miss is
+    listed, then fails the phase."""
+    from pearl_tpu_torch.benchmarks import METHODS
+    from pearl_tpu_torch.benchmarks.guarantees import fixed_point_q, frozen_target_signal
+    from pearl_tpu_torch.policy_learners.sequential_decision_making import (
+        DeepQLearning, DeepSARSA, DoubleDQN,
+    )
+
+    wrappers = visual_wrappers()
+    rows = dict(sorted(METHODS.items()))
+    example = extending_example()
+    rows[example.name] = example
+    misses, counts, seconds = [], {}, {}
+    t0 = time.perf_counter()
+    for name, method in rows.items():
+        reset_fused_counts()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        report = frozen_target_signal(name, method, device="cuda")
+        seconds[name] = time.perf_counter() - t
+        if name == "MultiHeadDQN":
+            counts["fused_mlp"] = fused_counts()
+        if name == "VisualDQN":
+            counts.update({k: fn.launches for k, fn in wrappers.items()})
+        failures = report.failures()
+        misses += [f"{name}: {f}" for f in failures]
+        print(f"learning signal: {name}: {report.metric} early {report.early:.6f} late "
+              f"{report.late:.6f} ratio {report.ratio:.6f} threshold {report.threshold} over "
+              f"{report.learns} learns in {seconds[name]:.2f} s: "
+              f"{'met' if not failures else 'MISSED'} on {card}", flush=True)
+    rows_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for label, cls, gamma in (("DQN", DeepQLearning, 0.9), ("Double DQN", DoubleDQN, 0.9),
+                              ("deep SARSA", DeepSARSA, 0.9), ("DQN control", DeepQLearning, 0.45)):
+        q = fixed_point_q(cls, gamma, device="cuda")
+        target = 1.0 / (1.0 - gamma)
+        met = abs(q - target) < 0.5 and (gamma == 0.9 or abs(q - 10.0) > 5.0)
+        if not met:
+            misses.append(f"fixed point {label} at gamma {gamma}: Q {q} against {target}")
+        print(f"td fixed point: {label} at gamma {gamma}: Q(s0, a0) {q:.6f} against "
+              f"1 / (1 - gamma) = {target:.6f} after 800 learns: {'met' if met else 'MISSED'} "
+              f"on {card}", flush=True)
+    fixed_s = time.perf_counter() - t0
+
+    b1 = counts["fused_mlp"]
+    # 32 acts at 4 envs, then 60 learns of 2 rounds, each the online and the
+    # target Q: every one a rows-body launch.
+    assert b1 == {"launches": 32 + 60 * 2 * 2,
+                  "by_body": {"rows": 32 + 60 * 2 * 2, "tiled": 0, "general": 0}}, b1
+    for name in ("ring_write", "ring_write_where", "copy_fence", "masked_scale_fence4"):
+        assert counts[name] > 0, (name, counts)
+    assert counts["masked_scale_fence4"] > 32, counts  # the learns' windows too
+    print(f"learning signal: {len(rows) - 1} METHODS rows and the EXTENDING.md row in "
+          f"{rows_s:.1f} s (slowest {max(seconds, key=seconds.get)} "
+          f"{max(seconds.values()):.2f} s), the fixed points in {fixed_s:.1f} s; launches: "
+          f"B1 {b1} over the MultiHeadDQN row, B2 {counts['ring_write']}, B7 "
+          f"{counts['ring_write_where']}, B3 {counts['copy_fence']}, B6b "
+          f"{counts['masked_scale_fence4']} over the VisualDQN row; misses {len(misses)} on "
+          f"{card}", flush=True)
+    assert not misses, misses
     return counts
 
 
@@ -5021,6 +5109,10 @@ def main() -> int:
     run_examples(card)
     phase("examples", t0)
 
+    t0 = time.perf_counter()
+    signal = run_learning_signal(card)
+    phase("learning signal and fixed point", t0)
+
     act = timing[ACT_SHAPE[0]]
     kernels = [{
         "name": "fused_mlp",
@@ -5053,6 +5145,7 @@ def main() -> int:
             f"population ({POP_M} members, {POP_TIMED} dispatches)": population["counts"],
             "host loop (1000 acts at B = 1, 225 learns)": host_loops["counts"],
             "registry rows (39 rows, 4 envs)": registry["fused_mlp"],
+            "learning signal, MultiHeadDQN row (32 acts, 60 learns)": signal["fused_mlp"],
             "dp world-1 nccl driver (1 dispatch)": dp_world1["counts"],
             **{f"dp two ranks on cuda:0, rank {r} ({DP_TIMED} dispatches)": c
                for r, c in enumerate(dp_ranks["counts"])},
@@ -5070,8 +5163,10 @@ def main() -> int:
             "launches": visual_launches[name],
             **t,
         })
-        if registry[name]:
-            kernels[-1]["launches_by_path"] = {"registry rows (39 rows, 4 envs)": registry[name]}
+        by_path = {"registry rows (39 rows, 4 envs)": registry[name],
+                   "learning signal, VisualDQN row (32 steps, 90 learns)": signal[name]}
+        if any(by_path.values()):
+            kernels[-1]["launches_by_path"] = {k: v for k, v in by_path.items() if v}
     assert kernels[-1]["name"] == "ring_conv1"
     kernels[-1]["mma_launches"] = fused_mma_launches
     for k in kernels:

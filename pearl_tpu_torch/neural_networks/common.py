@@ -1,9 +1,10 @@
 """Common NN building blocks (port of `pearl_tpu/neural_networks/common.py`).
 
-The activation table with `resolve_activation`, the MLP with every option of
-the reference's (activation, layer norm, dropout, skip connections, the
-initializer, a last activation), flax's `LayerNorm`, `ResidualWrapper`, the
-conv feature stack `ConvNet`, `nchw_images`, `select_index_last`,
+The activation table with `resolve_activation` and `normalized_softplus`,
+the MLP with every option of the reference's (activation, layer norm,
+dropout, skip connections, the initializer, a last activation), flax's
+`LayerNorm`, `ResidualWrapper`, the conv feature stack `ConvNet` with its
+activation and normalisation, `nchw_images`, `select_index_last`,
 `over_actions`, and the two initializers of flax's `Dense` and `Conv`
 layers.
 """
@@ -20,7 +21,7 @@ from torch import nn
 from pearl_tpu_torch.utils.pytree import tree_map
 
 
-def _normalized_softplus(x: torch.Tensor) -> torch.Tensor:
+def normalized_softplus(x: torch.Tensor) -> torch.Tensor:
     """softplus(x) / log(2), which is 1 at x = 0."""
     return F.softplus(x) / math.log(2.0)
 
@@ -36,7 +37,7 @@ ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "elu": F.elu,
     "linear": lambda x: x,
-    "normalized_softplus": _normalized_softplus,
+    "normalized_softplus": normalized_softplus,
 }
 
 
@@ -212,13 +213,17 @@ def promoted_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class ConvNet(nn.Module):
-    """Conv feature stack `conv_0 ... conv_{n-1}` with relu after each, then a
-    flatten (the reference `ConvNet`). `forward` takes NCHW images in
-    [0, 255] and applies the reference's float32 `/ 255` first; weights are
-    OIHW (`nn.Conv2d`), lecun-normal with zero biases as flax's `nn.Conv`.
-    The flatten is PyTorch's (C, H, W) order; `utils.jax_params` permutes the
-    next layer's columns when weights are carried over from the reference's
-    (H, W, C) flatten."""
+    """Conv feature stack `conv_0 ... conv_{n-1}`, each followed by
+    `activation` (a name of `ACTIVATIONS` or a callable), then a flatten (the
+    reference `ConvNet`). `forward` takes NCHW images; with `normalize` (the
+    default) they are in [0, 255] and the reference's float32 `/ 255` comes
+    first, without it they go in as they are, in the promoted dtype of input
+    and weights. Weights are OIHW (`nn.Conv2d`), lecun-normal with zero
+    biases as flax's `nn.Conv`. The flatten is PyTorch's (C, H, W) order;
+    `utils.jax_params` permutes the next layer's columns when weights are
+    carried over from the reference's (H, W, C) flatten. The frame kernels
+    fold the `/ 255` and relu of the defaults into conv1: a kernel path asks
+    `check_plain_relu_stack()` first."""
 
     def __init__(
         self,
@@ -227,9 +232,13 @@ class ConvNet(nn.Module):
         kernel_sizes: Sequence[int] = (8, 4),
         strides: Sequence[int] = (4, 2),
         paddings: Sequence[int] = (0, 0),
+        activation="relu",
+        normalize: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.activation = activation
+        self.normalize = normalize
         self.layer_names: List[str] = [f"conv_{i}" for i in range(len(out_channels))]
         channels = [in_channels, *out_channels]
         for name, c_in, c_out, k, s, p in zip(
@@ -246,12 +255,26 @@ class ConvNet(nn.Module):
     def layers(self) -> List[nn.Conv2d]:
         return [getattr(self, n) for n in self.layer_names]
 
+    def check_plain_relu_stack(self) -> None:
+        """Raise unless this is the stack the frame kernels compute: `/ 255`
+        inputs and relu after every conv (`MLP.wb()`'s rule for `fused_mlp`)."""
+        if not self.normalize or resolve_activation(self.activation) is not F.relu:
+            raise ValueError(
+                "the frame kernels fold the / 255 and relu into conv1; this ConvNet has "
+                f"activation={self.activation!r}, normalize={self.normalize}"
+            )
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32) / 255.0
+        act = resolve_activation(self.activation)
+        if self.normalize:
+            x = x.to(torch.float32) / 255.0
+        else:
+            x = x.to(torch.promote_types(x.dtype, self.conv_0.weight.dtype))
         for layer in self.layers():
-            # float32 throughout, as flax promotes under lower-precision weights.
+            # In x's dtype (float32 after `/ 255`), as flax promotes under
+            # lower-precision weights.
             weight, bias = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
-            x = F.relu(F.conv2d(x, weight, bias, stride=layer.stride, padding=layer.padding))
+            x = act(F.conv2d(x, weight, bias, stride=layer.stride, padding=layer.padding))
         return x.flatten(1)
 
 

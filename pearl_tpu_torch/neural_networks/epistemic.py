@@ -68,9 +68,13 @@ class _PriorNets(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class Epinet:
+    """`num_prior_nets` is the reference's field, accepted and, as there,
+    never read: the prior ensemble has `index_dim` members."""
+
     index_dim: int = 8
     hidden_dims: Sequence[int] = (64,)
     output_dim: int = 1
+    num_prior_nets: int = 8
     prior_scale: float = 0.3
 
     def init(self, generator, feature_dim: int) -> dict:

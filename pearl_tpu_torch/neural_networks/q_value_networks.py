@@ -279,7 +279,7 @@ class _CNNQNet(nn.Module):
     ):
         super().__init__()
         H, W, C = input_shape
-        self.conv = ConvNet(C, out_channels, kernel_sizes, strides, paddings, generator)
+        self.conv = ConvNet(C, out_channels, kernel_sizes, strides, paddings, generator=generator)
         for k, s, p in zip(kernel_sizes, strides, paddings):
             H, W = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
         self.feature_shape = (out_channels[-1], H, W)  # (C, H, W), the flatten's order
@@ -402,6 +402,7 @@ class CNNQValueNetwork:
         then divided by 255: the input normalisation folded in
         (conv(x/255, W) == conv(x, W/255))."""
         T, _, _, k, _, _, _, OC = self._conv1_dims()
+        params.conv.check_plain_relu_stack()
         k0 = params.conv.conv_0.weight.to(dtype) / 255.0
         return k0.permute(1, 0, 2, 3).reshape(T * OC, 1, k, k)
 
@@ -468,14 +469,17 @@ class CNNQValueNetwork:
         """Consume a `FrameRingView` without materialising the time-ordered
         stack: conv1's input channels are the T frames, so rolling its kernel
         by the ring cursor equals rolling the input into time order, and the
-        fence masks invalid frames and normalises as conv1's input is made.
-        The live acting carry (`from_replay` false) takes the conv1 cache
-        when the view carries one, else the ring conv when it is asked for."""
+        fence masks invalid frames and normalises as conv1's input is made
+        (so the conv stack must be the plain relu one over `/ 255` inputs:
+        any other raises). The live acting carry (`from_replay` false)
+        takes the conv1 cache when the view carries one, else the ring conv
+        when it is asked for."""
         if not self.time_major_stack:
             raise ValueError(
                 "FrameRingView input requires time_major_stack=True (the ring "
                 "axis is the frame-stack axis)"
             )
+        params.conv.check_plain_relu_stack()
         if view.cache is not None and not view.from_replay and self.cache_enabled:
             return self._q_all_cached(params, view)
         H, W, C = self.input_shape

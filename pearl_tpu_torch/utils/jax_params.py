@@ -13,7 +13,8 @@ names, e.g. for `MultiHeadQValueNetwork` and for `VanillaQValueNetwork`
 Flax `Dense.kernel` is (in, out); `nn.Linear.weight`, and therefore the
 `fused_mlp` kernel's W, is (out, in): each kernel is transposed on the way in.
 `CNNQValueNetwork`'s tree adds `{"conv": {"conv_0": {"kernel", "bias"}, ...}}`
-with HWIO kernels (`load_flax_cnn_q_params`).
+with HWIO kernels (`load_flax_cnn_q_params`); a standalone `ConvNet`'s tree
+is that `conv` part (`load_flax_conv_net`).
 
 `frame_ring_view_from_numpy` carries the frame-ring state across: a JAX
 `FrameRingView`'s ring, validity mask, cursor and conv1 cache.
@@ -216,24 +217,17 @@ def load_flax_epinet_params(net: nn.Module, params: Mapping) -> nn.Module:
 
 
 @torch.no_grad()
-def load_flax_cnn_q_params(net: nn.Module, params: Mapping) -> nn.Module:
-    """Load a `CNNQValueNetwork`'s flax params,
-    `{"conv": {"conv_i": {kernel, bias}}, "MLP_0": {...}}`, into the port's
-    `_CNNQNet`; returns `net`.
-
-    Flax conv kernels are HWIO and `nn.Conv2d` weights OIHW: each is
-    transposed (3, 2, 0, 1). The reference flattens its NHWC features as
-    (H, W, C) and the port flattens NCHW as (C, H, W), so the rows of the
-    first MLP kernel are permuted to the port's order on the way in."""
-    if set(params) != {"conv", "MLP_0"}:
-        raise ValueError(f"expected a {{'conv', 'MLP_0'}} param tree, got keys {sorted(params)}")
-    if set(params["conv"]) != set(net.conv.layer_names):
-        raise ValueError(
-            f"flax conv layers {sorted(params['conv'])} != port layers {net.conv.layer_names}"
-        )
-    for name, layer in zip(net.conv.layer_names, net.conv.layers()):
-        kernel = torch.from_numpy(np.array(params["conv"][name]["kernel"], dtype=np.float32))
-        bias = torch.from_numpy(np.array(params["conv"][name]["bias"], dtype=np.float32))
+def load_flax_conv_net(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a flax `ConvNet`'s params, `{"conv_i": {kernel, bias}}`, into a
+    `neural_networks.common.ConvNet`; returns `net`. Flax conv kernels are
+    HWIO and `nn.Conv2d` weights OIHW: each is transposed (3, 2, 0, 1). The
+    two flatten their features in other orders ((H, W, C) against (C, H,
+    W)): a layer after the stack takes `_hwc_rows_to_chw`'s permutation."""
+    if set(params) != set(net.layer_names):
+        raise ValueError(f"flax conv layers {sorted(params)} != port layers {net.layer_names}")
+    for name, layer in zip(net.layer_names, net.layers()):
+        kernel = _np(params[name]["kernel"])
+        bias = _np(params[name]["bias"])
         weight = kernel.permute(3, 2, 0, 1)
         if weight.shape != layer.weight.shape or bias.shape != layer.bias.shape:
             raise ValueError(
@@ -242,6 +236,19 @@ def load_flax_cnn_q_params(net: nn.Module, params: Mapping) -> nn.Module:
             )
         layer.weight.copy_(weight)
         layer.bias.copy_(bias)
+    return net
+
+
+@torch.no_grad()
+def load_flax_cnn_q_params(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load a `CNNQValueNetwork`'s flax params,
+    `{"conv": {"conv_i": {kernel, bias}}, "MLP_0": {...}}`, into the port's
+    `_CNNQNet`; returns `net`: the conv stack through `load_flax_conv_net`,
+    and the rows of the first MLP kernel permuted from the reference's
+    (H, W, C) flatten of its NHWC features to the port's (C, H, W)."""
+    if set(params) != {"conv", "MLP_0"}:
+        raise ValueError(f"expected a {{'conv', 'MLP_0'}} param tree, got keys {sorted(params)}")
+    load_flax_conv_net(net.conv, params["conv"])
     mlp = {name: dict(layer) for name, layer in params["MLP_0"].items()}
     first = net.MLP_0.layer_names[0]
     mlp[first]["kernel"] = _hwc_rows_to_chw(

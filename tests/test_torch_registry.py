@@ -26,8 +26,9 @@ import torch
 from pearl_tpu.benchmarks import configs as jax_configs
 from pearl_tpu_torch.benchmarks import configs
 from pearl_tpu_torch.benchmarks.configs import METHODS
+from pearl_tpu_torch.benchmarks.guarantees import env_for_method
 from pearl_tpu_torch.benchmarks.run import run_benchmark
-from pearl_tpu_torch.envs import CartPole, Pendulum
+from pearl_tpu_torch.envs import CartPole
 from pearl_tpu_torch.replay_buffers import OnPolicyReplayBuffer
 from pearl_tpu_torch.training import online_learning
 from pearl_tpu_torch.utils import tree_allclose
@@ -92,32 +93,6 @@ def test_method_composition_matches_the_reference(name):
         assert compared >= 15, (name, compared)
 
 
-def env_for_method(method, agent):
-    """The env family of each row, as the reference's breadth test pairs
-    them (tests/test_all_methods_matrix.py:17-47)."""
-    if method.env_family == "visual":
-        from pearl_tpu_torch.envs import Breakout
-
-        return Breakout()
-    if method.env_family == "visual_frames":
-        from pearl_tpu_torch.envs import SyntheticAtari
-
-        return SyntheticAtari(height=12, width=12, frames=1, episode_len=32)
-    if agent.store_cost and method.continuous:
-        return Pendulum(emit_torque_cost=True)
-    if agent.store_cost:
-        from pearl_tpu_torch.envs import SafetyWrapper
-
-        return SafetyWrapper(CartPole(), risky_fn=lambda obs, action: obs[..., 0] > 0.5)
-    if method.continuous:
-        return Pendulum()
-    if agent.track_available_masks:
-        from pearl_tpu_torch.envs import DynamicActionSpaceWrapper
-
-        return DynamicActionSpaceWrapper(CartPole(), interval=4, num_masked=1)
-    return CartPole()
-
-
 def train_briefly(method, num_envs=4, device=CPU):
     """A few learns of a row on its env family (on-policy rollouts cut to
     16 steps), as the reference's breadth test runs it."""
@@ -137,14 +112,15 @@ def train_briefly(method, num_envs=4, device=CPU):
     )
 
 
-@pytest.mark.parametrize("name", sorted(jax_configs.METHODS))
-def test_method_trains_and_roundtrips(name, tmp_path):
-    state = train_briefly(METHODS[name]).agent_state
+def check_trains_and_roundtrips(name, method, directory):
+    """A short training of the row stays finite, and its state round-trips
+    through `save`/`restore`, the generators' streams included."""
+    state = train_briefly(method).agent_state
     assert state.learner.step > 0, name
     for leaf_name, leaf in named_leaves(state.learner):
         if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
             assert torch.isfinite(leaf).all(), (name, leaf_name)
-    path = str(tmp_path / "ckpt")
+    path = os.path.join(str(directory), "ckpt")
     save(path, state)
     restored = restore(path, state)
     assert tree_allclose(restored, state), name
@@ -152,6 +128,11 @@ def test_method_trains_and_roundtrips(name, tmp_path):
              if isinstance(a, torch.Generator)]
     for a, b in pairs:
         assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b)), name
+
+
+@pytest.mark.parametrize("name", sorted(jax_configs.METHODS))
+def test_method_trains_and_roundtrips(name, tmp_path):
+    check_trains_and_roundtrips(name, METHODS[name], tmp_path)
 
 
 def test_dynamic_action_experiment_preset():

@@ -19,7 +19,9 @@ recommender (tests/test_recsys.py:57-80) and QR-DQN on the mean-variance
 bandit (tests/test_risk_sensitive_and_transformer.py:22-59); and the
 reference's UCI CB suite (`--env cb_suite`: every CB method on every dataset,
 T = 5000 over 10 envs, benchmarks/cb.py's `run_cb_benchmark_suite`; the
-final_avg_regret of each cell). `--mesh N` runs a CartPole or Pendulum
+final_avg_regret of each cell); and every registry row's learning signal on
+frozen targets (`--env learning_signal`: its loss's late / early ratio
+against the thresholds of tests/test_learning_signal_matrix.py). `--mesh N` runs a CartPole or Pendulum
 learner data-parallel over N ranks: the JAX package on N virtual CPU devices
 (`make_mesh(N)`), the port in N processes joined by gloo (on `--device`, which
 the ranks share); `--learner mesh_dqn --mesh 2` is the mesh anchor
@@ -43,6 +45,7 @@ bit-identical). Not collected by pytest; run it:
         --learner qrdqn_mean_variance --seeds 0
     python tests/torch_port_convergence.py --package torch --env cb_suite --seeds 0 1 2
     python tests/torch_port_convergence.py --package torch --learner mesh_dqn --mesh 2
+    python tests/torch_port_convergence.py --package jax --env learning_signal --seeds 0 1 2
 
 `--package torch` runs the port on the CPU unless `--device cuda` is given.
 Prints one JSON line per seed.
@@ -578,6 +581,90 @@ def run_cb_suite(package, seed, device):
     return {"final_avg_regret": regrets, "seconds": seconds}
 
 
+LEARNING_SIGNAL_LEARNERS = ("registry",)
+
+
+def _jax_frozen_target_losses(name, method, seed):
+    """The JAX side of `run_learning_signal`: the row logic of
+    tests/test_learning_signal_matrix.py:50-118 (fill seed `seed`, learn key
+    `seed + 1`), returning (metric, per-learn values)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from pearl_tpu.replay_buffers.on_policy import OnPolicyReplayBuffer
+    from pearl_tpu.training import online_learning
+    from test_all_methods_matrix import env_for_method
+
+    agent = method.make_agent(4)
+    env = env_for_method(method, agent)
+    rollout = method.on_policy_rollout
+    if rollout is not None:
+        rollout = 16
+        agent = dataclasses.replace(
+            agent, replay_buffer=OnPolicyReplayBuffer(capacity=rollout * 4, num_envs=4))
+    res = online_learning(agent, env, num_envs=4, max_steps=(rollout or 32) * 4,
+                          learn_every_k_steps=rollout or 32, learn=False, seed=seed)
+    storage = res.agent_state.replay.storage
+    if isinstance(storage, dict):
+        rest = storage["rest"].replace(terminated=jnp.ones_like(storage["rest"].terminated))
+        if float(jnp.abs(rest.reward).mean()) < 0.05:
+            n = rest.reward.shape[0]
+            rest = rest.replace(reward=1.0 + storage["frame_s"].reshape(n, -1).mean(axis=1))
+        storage = {**storage, "rest": rest}
+    else:
+        storage = storage.replace(terminated=jnp.ones_like(storage.terminated))
+        if float(jnp.abs(storage.reward).mean()) < 0.05:
+            n = storage.reward.shape[0]
+            storage = storage.replace(reward=1.0 + storage.state.reshape(n, -1).mean(axis=1))
+    buffer_state = res.agent_state.replay.replace(storage=storage)
+    learner, buffer = agent.for_env(env).policy_learner, agent.replay_buffer
+    n_learns = 90 if method.env_family.startswith("visual") else 60
+
+    @jax.jit
+    def learns(ls, bs, key):
+        def one(carry, k):
+            ls, bs, metrics = learner.learn(carry[0], buffer, carry[1], k)
+            return (ls, bs), metrics
+
+        return jax.lax.scan(one, (ls, bs), jax.random.split(key, n_learns))[1]
+
+    metrics = learns(res.agent_state.learner, buffer_state, jax.random.PRNGKey(seed + 1))
+    metric = next(k for k in ("loss", "critic_loss", "value_loss") if k in metrics)
+    return metric, np.asarray(metrics[metric])
+
+
+def run_learning_signal(package, seed, device):
+    """Every registry row's learning signal on frozen targets (the check of
+    tests/test_learning_signal_matrix.py and tests/test_torch_learning_signal.py):
+    {row: [metric, early, late, late / early, threshold]}, the rows'
+    thresholds those of `pearl_tpu_torch/benchmarks/guarantees.py`, and the
+    rows that miss one. The reference's seeds are fill seed 0, learn key 1."""
+    _modules(package)  # JAX on the CPU, the port's thread count
+    from pearl_tpu_torch.benchmarks.guarantees import (
+        RATIO_DEFAULT, RATIO_OVERRIDES, SignalReport, frozen_target_signal,
+    )
+
+    root = "pearl_tpu" if package == "jax" else "pearl_tpu_torch"
+    methods = importlib.import_module(f"{root}.benchmarks.configs").METHODS
+    rows, misses = {}, []
+    for name, method in sorted(methods.items()):
+        if package == "torch":
+            r = frozen_target_signal(name, method, seed=seed, learn_seed=seed + 1, device=device)
+        else:
+            metric, values = _jax_frozen_target_losses(name, method, seed)
+            r = SignalReport(name=name, metric=metric, early=float(values[:3].mean()),
+                             late=float(values[-3:].mean()),
+                             threshold=RATIO_OVERRIDES.get(name, RATIO_DEFAULT),
+                             finite=bool(np.isfinite(values).all()), learns=len(values))
+        rows[name] = [r.metric, round(r.early, 6), round(r.late, 6), round(r.ratio, 6),
+                      r.threshold]
+        if r.failures():
+            misses.append(name)
+    return {"rows": rows, "misses": misses}
+
+
 def _mesh(package, n):
     """A mesh of `n` for the JAX package (its virtual CPU devices)."""
     if n <= 1 or package != "jax":
@@ -673,20 +760,22 @@ def main():
     parser.add_argument("--package", choices=("jax", "torch"), required=True)
     parser.add_argument("--env", choices=("cartpole", "pendulum", "sparse_reach",
                                           "partial_cartpole", "offline", "rc_pendulum",
-                                          "cb_suite")
+                                          "cb_suite", "learning_signal")
                         + tuple(ENV_ANCHORS), default="cartpole")
     env_learners = tuple(x for names, _ in ENV_ANCHORS.values() for x in names)
     parser.add_argument("--learner", choices=tuple(dict.fromkeys(
                             tuple(CARTPOLE_LEARNERS) + tuple(PENDULUM_LEARNERS)
                             + tuple(SPARSE_LEARNERS) + tuple(PARTIAL_LEARNERS) + OFFLINE_LEARNERS
-                            + RC_LEARNERS + CB_LEARNERS + env_learners)),
+                            + RC_LEARNERS + CB_LEARNERS + LEARNING_SIGNAL_LEARNERS
+                            + env_learners)),
                         help="dqn, dueling, qrdqn, sarsa, double, cql, sac, ppo or reinforce "
                         "on CartPole (default dqn); csac, "
                         "ddpg or td3 on Pendulum (default csac); her on sparse_reach; "
                         "lstm_dqn or transformer_dqn on partial_cartpole; iql or offline_cql "
                         "on offline; rccsac on rc_pendulum; dqn or tabular_q on frozen_lake; "
                         "dqn on catcher and recsys; qrdqn_risk_neutral or qrdqn_mean_variance "
-                        "on mean_var_bandit; cb_methods (all four) on cb_suite")
+                        "on mean_var_bandit; cb_methods (all four) on cb_suite; registry "
+                        "(every METHODS row) on learning_signal")
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--device", default="cpu", help="torch device (port only)")
     parser.add_argument("--mesh", type=int, default=1,
@@ -695,7 +784,7 @@ def main():
     learners = {"cartpole": CARTPOLE_LEARNERS, "pendulum": PENDULUM_LEARNERS,
                 "sparse_reach": SPARSE_LEARNERS, "partial_cartpole": PARTIAL_LEARNERS,
                 "offline": OFFLINE_LEARNERS, "rc_pendulum": RC_LEARNERS,
-                "cb_suite": CB_LEARNERS,
+                "cb_suite": CB_LEARNERS, "learning_signal": LEARNING_SIGNAL_LEARNERS,
                 **{name: names for name, (names, _) in ENV_ANCHORS.items()}}[args.env]
     if args.learner is None:
         args.learner = next(iter(learners))
@@ -718,11 +807,13 @@ def main():
                               "seed": seed, "reference_seed": ENV_ANCHORS[args.env][1][
                                   args.learner], **numbers}), flush=True)
             continue
-        if args.env in ("offline", "rc_pendulum", "cb_suite"):
+        if args.env in ("offline", "rc_pendulum", "cb_suite", "learning_signal"):
             numbers = {"offline": lambda: run_offline(args.package, args.learner, seed,
                                                       args.device),
                        "rc_pendulum": lambda: run_rc(args.package, seed, args.device),
                        "cb_suite": lambda: run_cb_suite(args.package, seed, args.device),
+                       "learning_signal": lambda: run_learning_signal(args.package, seed,
+                                                                      args.device),
                        }[args.env]()
             print(json.dumps({"package": args.package, "env": args.env,
                               "learner": args.learner, "seed": seed, **numbers}), flush=True)
