@@ -37,6 +37,7 @@ from pearl_tpu_torch.safety_modules import (
     RiskSensitiveSafetyModule,
     SafetyModule,
 )
+from pearl_tpu_torch.utils import profiling
 from pearl_tpu_torch.utils.device import DeviceLike, resolve_device
 from pearl_tpu_torch.utils.pytree import tree_select
 
@@ -239,12 +240,15 @@ class PearlAgent:
     def act(
         self, astate: AgentState, generator: Optional[torch.Generator], exploit: bool = False
     ) -> Tuple[AgentState, ActionChoice]:
-        subjective = self.subjective_state(astate)
-        mask = self.safety_module.filter_action(astate.safety, subjective, astate.available_mask)
-        learner_state, choice = self.policy_learner.act(
-            astate.learner, subjective, mask, generator, exploit
-        )
-        return dataclasses.replace(astate, learner=learner_state, last_action=choice), choice
+        with profiling.span("agent.act"):
+            subjective = self.subjective_state(astate)
+            mask = self.safety_module.filter_action(
+                astate.safety, subjective, astate.available_mask
+            )
+            learner_state, choice = self.policy_learner.act(
+                astate.learner, subjective, mask, generator, exploit
+            )
+            return dataclasses.replace(astate, learner=learner_state, last_action=choice), choice
 
     # --------------------------------------------------------------- observe
     def observe(
@@ -256,11 +260,14 @@ class PearlAgent:
     ) -> AgentState:
         """Ingest a batched env step: update history, push the transition,
         reset per-env state where episodes ended."""
-        if self._frame_path:
-            return self._observe_frames(astate, result, next_obs, generator)
-        astate, transition = self.observe_deferred(astate, result, next_obs, generator)
-        replay_state = self.replay_buffer.push(astate.replay, transition, generator)
-        return dataclasses.replace(astate, replay=replay_state)
+        with profiling.span("agent.observe"):
+            if self._frame_path:
+                return self._observe_frames(astate, result, next_obs, generator)
+            astate, transition = self.observe_deferred(astate, result, next_obs, generator)
+            with profiling.span("replay.push"):
+                profiling.count("replay.rows_pushed", result.reward.shape[0])
+                replay_state = self.replay_buffer.push(astate.replay, transition, generator)
+            return dataclasses.replace(astate, replay=replay_state)
 
     def _observe_frames(
         self,
@@ -274,22 +281,25 @@ class PearlAgent:
         written into the ring, O(frame) instead of O(window) per step."""
         summ = self._summ
         done = result.done
-        # `advance` writes the ring in place (with history_length == 1 into
-        # the very slot `newest_frame` views), so the acting frame is copied
-        # out first.
-        frame_s = copy_fence(summ.newest_frame(astate.history_carry))
-        carry_next = summ.advance(astate.history_carry, result.observation, next_obs, done)
-        net = self._cache_net
-        if net is not None:
-            # The entry frame, where(done, next_obs, obs) in the ring's dtype,
-            # is what `advance` just wrote at the OLD cursor: read it back,
-            # take its contributions under the learner's current conv1
-            # weights, and scatter them along that slot's diagonal.
-            slot = astate.history_carry.cursor
-            with torch.no_grad():
-                y = net.cache_contrib_y(astate.learner.params, copy_fence(carry_next.ring[:, slot]))
-            T, _, _, _, _, _, _, OC = net._conv1_dims()
-            cache_write(carry_next.cache, y, slot, T=T, OC=OC)
+        with profiling.span("history.advance"):
+            # `advance` writes the ring in place (with history_length == 1
+            # into the very slot `newest_frame` views), so the acting frame
+            # is copied out first.
+            frame_s = copy_fence(summ.newest_frame(astate.history_carry))
+            carry_next = summ.advance(astate.history_carry, result.observation, next_obs, done)
+            net = self._cache_net
+            if net is not None:
+                # The entry frame, where(done, next_obs, obs) in the ring's
+                # dtype, is what `advance` just wrote at the OLD cursor: read
+                # it back, take its contributions under the learner's current
+                # conv1 weights, and scatter them along that slot's diagonal.
+                slot = astate.history_carry.cursor
+                with torch.no_grad():
+                    y = net.cache_contrib_y(
+                        astate.learner.params, copy_fence(carry_next.ring[:, slot])
+                    )
+                T, _, _, _, _, _, _, OC = net._conv1_dims()
+                cache_write(carry_next.cache, y, slot, T=T, OC=OC)
         rest = TransitionBatch(
             state=None,
             action=astate.last_action.action,
@@ -300,9 +310,11 @@ class PearlAgent:
             action_index=astate.last_action.index,
             **self._stored_columns(astate, result),
         )
-        replay_state = self.replay_buffer.push_frames(
-            astate.replay, frame_s, result.observation, rest
-        )
+        with profiling.span("replay.push"):
+            profiling.count("replay.rows_pushed", result.reward.shape[0])
+            replay_state = self.replay_buffer.push_frames(
+                astate.replay, frame_s, result.observation, rest
+            )
         return dataclasses.replace(
             astate,
             learner=self.policy_learner.episode_reset(astate.learner, done, generator),
@@ -350,11 +362,17 @@ class PearlAgent:
         learner = self.policy_learner
         rep = learner.resolved_action_representation(learner.action_space)
 
-        prev_stored = summ.stored(astate.history_carry)
-        act_rep = rep.apply(astate.last_action.action)
-        carry_after = summ.observe(astate.history_carry, result.observation, act_rep)
-        next_stored = summ.stored(carry_after)
-        done = result.done
+        with profiling.span("history.advance"):
+            prev_stored = summ.stored(astate.history_carry)
+            act_rep = rep.apply(astate.last_action.action)
+            carry_after = summ.observe(astate.history_carry, result.observation, act_rep)
+            next_stored = summ.stored(carry_after)
+            done = result.done
+            # Asynchronous per-env episode resets: zero the window and seed
+            # it with the post-reset observation.
+            zeroed = summ.reset_envs(carry_after, done)
+            fresh = summ.observe(zeroed, next_obs, None)
+            carry_next = tree_select(done, fresh, carry_after)
 
         transition = TransitionBatch(
             state=prev_stored,
@@ -366,12 +384,6 @@ class PearlAgent:
             action_index=astate.last_action.index,
             **self._stored_columns(astate, result),
         )
-
-        # Asynchronous per-env episode resets: zero the window and seed it
-        # with the post-reset observation.
-        zeroed = summ.reset_envs(carry_after, done)
-        fresh = summ.observe(zeroed, next_obs, None)
-        carry_next = tree_select(done, fresh, carry_after)
 
         learner_state = learner.episode_reset(astate.learner, done, generator)
         astate = dataclasses.replace(
@@ -394,30 +406,31 @@ class PearlAgent:
         module with a `batch_transform` (reward shaping) hands it to the
         learner, and one with `learn` then updates from replay under the
         learner's new state."""
-        safety = self.safety_module
-        transform = getattr(safety, "batch_transform", None)
-        extra = {} if transform is None else {"batch_transform": transform(astate.safety)}
-        learner_state, replay_state, metrics = self.policy_learner.learn(
-            astate.learner, self.replay_buffer, astate.replay, generator, indices=indices,
-            **extra,
-        )
-        safety_state = astate.safety
-        if hasattr(safety, "learn"):
-            safety_state, s_metrics = safety.learn(
-                safety_state, self.replay_buffer, astate.replay, generator,
-                self.policy_learner, learner_state,
+        with profiling.span("agent.learn"):
+            safety = self.safety_module
+            transform = getattr(safety, "batch_transform", None)
+            extra = {} if transform is None else {"batch_transform": transform(astate.safety)}
+            learner_state, replay_state, metrics = self.policy_learner.learn(
+                astate.learner, self.replay_buffer, astate.replay, generator, indices=indices,
+                **extra,
             )
-            metrics = {**metrics, **s_metrics}
-        if self.policy_learner.on_policy:
-            replay_state = self.replay_buffer.clear(replay_state)
-        net = self._cache_net
-        if net is not None:
-            # conv1's weights just moved: recompute every cached contribution
-            # (in place) so the act path stays exact.
-            net.refresh_cache(learner_state.params, astate.history_carry)
-        return dataclasses.replace(
-            astate, learner=learner_state, safety=safety_state, replay=replay_state
-        ), metrics
+            safety_state = astate.safety
+            if hasattr(safety, "learn"):
+                safety_state, s_metrics = safety.learn(
+                    safety_state, self.replay_buffer, astate.replay, generator,
+                    self.policy_learner, learner_state,
+                )
+                metrics = {**metrics, **s_metrics}
+            if self.policy_learner.on_policy:
+                replay_state = self.replay_buffer.clear(replay_state)
+            net = self._cache_net
+            if net is not None:
+                # conv1's weights just moved: recompute every cached contribution
+                # (in place) so the act path stays exact.
+                net.refresh_cache(learner_state.params, astate.history_carry)
+            return dataclasses.replace(
+                astate, learner=learner_state, safety=safety_state, replay=replay_state
+            ), metrics
 
     def learn_batch(self, astate: AgentState, batch: TransitionBatch):
         """Offline path: the safety module's `batch_transform` (if any), the

@@ -14,6 +14,7 @@ import torch
 
 from pearl_tpu_torch.api.environment import Environment
 from pearl_tpu_torch.api.types import ActionResult
+from pearl_tpu_torch.utils import profiling
 from pearl_tpu_torch.utils.pytree import tree_select
 
 
@@ -48,11 +49,12 @@ class VectorEnv:
         """Returns (new_states, results, next_obs) with auto-reset applied to
         new_states/next_obs but NOT to results.observation. The reset states
         are drawn from `generator`, or taken from `fresh` = (states, obs)."""
-        new_states, results = self.env.step(states, actions)
-        if fresh is None:
-            fresh = self.reset(generator)
-        fresh_states, fresh_obs = fresh
-        done = results.done
-        next_states = tree_select(done, fresh_states, new_states)
-        next_obs = tree_select(done, fresh_obs, results.observation)
-        return next_states, results, next_obs
+        with profiling.span("env.step"):
+            new_states, results = self.env.step(states, actions)
+            if fresh is None:
+                fresh = self.reset(generator)
+            fresh_states, fresh_obs = fresh
+            done = results.done
+            next_states = tree_select(done, fresh_states, new_states)
+            next_obs = tree_select(done, fresh_obs, results.observation)
+            return next_states, results, next_obs

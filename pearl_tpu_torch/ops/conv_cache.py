@@ -57,6 +57,7 @@ import functools
 import torch
 
 from pearl_tpu_torch.ops._build import load_library, on_card
+from pearl_tpu_torch.utils import profiling
 
 
 def contrib_chunks(y: torch.Tensor, T: int, OC: int):
@@ -119,34 +120,36 @@ def cache_write(
             slice of a wider tensor is taken as it is). Cast to the cache's
             dtype if it differs.
     cursor: host integer in [0, T)."""
-    _check(cache, y, cursor, T, OC)
-    y = y.to(cache.dtype)
-    if not on_card("cache_write", cache):
-        return cache_write_reference(cache, y, int(cursor), T=T, OC=OC)
-    B, D = cache.shape[2], cache.shape[3]
-    if B == 0 or D == 0:
+    with profiling.span("op.cache_write"):
+        _check(cache, y, cursor, T, OC)
+        y = y.to(cache.dtype)
+        if not on_card("cache_write", cache):
+            return cache_write_reference(cache, y, int(cursor), T=T, OC=OC)
+        B, D = cache.shape[2], cache.shape[3]
+        if B == 0 or D == 0:
+            return cache
+        _, C, OH, OW = y.shape
+        rows_contiguous = (
+            (OW == 1 or y.stride(3) == 1)
+            and (OH == 1 or y.stride(2) == OW)
+            and (C == 1 or y.stride(1) == OH * OW)
+        )
+        if not rows_contiguous:
+            raise ValueError(
+                f"cache_write: each row of y must be contiguous in (C, OH, OW) order, got strides "
+                f"{y.stride()} for shape {tuple(y.shape)}"
+            )
+        size = cache.element_size()
+        with torch.cuda.device(cache.device):
+            stream = torch.cuda.current_stream(cache.device).cuda_stream
+            err = _kernel_lib().cache_write(
+                cache.data_ptr(), y.data_ptr(), y.stride(0) * size, B, T, D * size, int(cursor),
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"cache_write kernel launch failed: CUDA error {err}")
+        cache_write.launches += 1
         return cache
-    _, C, OH, OW = y.shape
-    rows_contiguous = (
-        (OW == 1 or y.stride(3) == 1)
-        and (OH == 1 or y.stride(2) == OW)
-        and (C == 1 or y.stride(1) == OH * OW)
-    )
-    if not rows_contiguous:
-        raise ValueError(
-            f"cache_write: each row of y must be contiguous in (C, OH, OW) order, got strides "
-            f"{y.stride()} for shape {tuple(y.shape)}"
-        )
-    size = cache.element_size()
-    with torch.cuda.device(cache.device):
-        stream = torch.cuda.current_stream(cache.device).cuda_stream
-        err = _kernel_lib().cache_write(
-            cache.data_ptr(), y.data_ptr(), y.stride(0) * size, B, T, D * size, int(cursor), stream
-        )
-    if err != 0:
-        raise RuntimeError(f"cache_write kernel launch failed: CUDA error {err}")
-    cache_write.launches += 1
-    return cache
 
 
 cache_write.launches = 0

@@ -46,6 +46,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from pearl_tpu_torch.utils import profiling
+
 MAX_LAYERS = 8
 MAX_WIDTH = 256
 # The bodies of `csrc/fused_mlp.cu`, by the number its entry point reports.
@@ -235,7 +237,8 @@ class _FusedMLP(torch.autograd.Function):
 def fused_mlp(x: torch.Tensor, *wb: torch.Tensor) -> torch.Tensor:
     """relu-MLP chain x @ W1^T + b1 -> relu -> ... -> @ Wn^T + bn, with
     wb = (W1, b1, ..., Wn, bn) in nn.Linear layout. Differentiable."""
-    return _FusedMLP.apply(x, *wb)
+    with profiling.span("op.fused_mlp"):
+        return _FusedMLP.apply(x, *wb)
 
 
 def empty_launch() -> None:

@@ -43,6 +43,7 @@ from typing import Tuple
 import torch
 
 from pearl_tpu_torch.ops._build import load_library, on_card
+from pearl_tpu_torch.utils import profiling
 
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,26 +98,27 @@ def _kernel_lib() -> ctypes.CDLL:
 def copy_fence(x: torch.Tensor) -> torch.Tensor:
     """Bit-exact contiguous copy of a (B, F) tensor of any dtype with unit
     inner stride and any row stride (such as a ring's newest-frame view)."""
-    if x.dim() != 2:
-        raise ValueError(f"copy_fence: x must be (B, F), got shape {tuple(x.shape)}")
-    if not on_card("copy_fence", x):
-        return copy_fence_reference(x)
-    B, F = x.shape
-    if F > 1 and x.stride(1) != 1:
-        raise ValueError(f"copy_fence: x must have unit inner stride, got {x.stride()}")
-    out = torch.empty((B, F), dtype=x.dtype, device=x.device)
-    if B == 0 or F == 0:
+    with profiling.span("op.copy_fence"):
+        if x.dim() != 2:
+            raise ValueError(f"copy_fence: x must be (B, F), got shape {tuple(x.shape)}")
+        if not on_card("copy_fence", x):
+            return copy_fence_reference(x)
+        B, F = x.shape
+        if F > 1 and x.stride(1) != 1:
+            raise ValueError(f"copy_fence: x must have unit inner stride, got {x.stride()}")
+        out = torch.empty((B, F), dtype=x.dtype, device=x.device)
+        if B == 0 or F == 0:
+            return out
+        size = x.element_size()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _kernel_lib().copy_fence(
+                out.data_ptr(), x.data_ptr(), x.stride(0) * size, B, F * size, stream
+            )
+        if err != 0:
+            raise RuntimeError(f"copy_fence kernel launch failed: CUDA error {err}")
+        copy_fence.launches += 1
         return out
-    size = x.element_size()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel_lib().copy_fence(
-            out.data_ptr(), x.data_ptr(), x.stride(0) * size, B, F * size, stream
-        )
-    if err != 0:
-        raise RuntimeError(f"copy_fence kernel launch failed: CUDA error {err}")
-    copy_fence.launches += 1
-    return out
 
 
 copy_fence.launches = 0
@@ -147,22 +149,23 @@ def masked_scale_fence(
 
     ring (B, T, F) float32 or bfloat16, contiguous; valid (B, T) bool.
     Returns a new (B, T, F) tensor."""
-    B, T, F = _check_fence("masked_scale_fence", ring, valid)
-    if not on_card("masked_scale_fence", ring):
-        return masked_scale_fence_reference(ring, valid, div)
-    out = torch.empty((B, T, F), dtype=ring.dtype, device=ring.device)
-    if out.numel() == 0:
+    with profiling.span("op.masked_scale_fence"):
+        B, T, F = _check_fence("masked_scale_fence", ring, valid)
+        if not on_card("masked_scale_fence", ring):
+            return masked_scale_fence_reference(ring, valid, div)
+        out = torch.empty((B, T, F), dtype=ring.dtype, device=ring.device)
+        if out.numel() == 0:
+            return out
+        with torch.cuda.device(ring.device):
+            stream = torch.cuda.current_stream(ring.device).cuda_stream
+            err = _kernel_lib().masked_scale_fence(
+                ring.data_ptr(), valid.data_ptr(), out.data_ptr(), B, T, F,
+                _ELEM[ring.dtype], int(div != 1.0), _reciprocal(div), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"masked_scale_fence kernel launch failed: CUDA error {err}")
+        masked_scale_fence.launches += 1
         return out
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = _kernel_lib().masked_scale_fence(
-            ring.data_ptr(), valid.data_ptr(), out.data_ptr(), B, T, F,
-            _ELEM[ring.dtype], int(div != 1.0), _reciprocal(div), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"masked_scale_fence kernel launch failed: CUDA error {err}")
-    masked_scale_fence.launches += 1
-    return out
 
 
 masked_scale_fence.launches = 0
@@ -173,24 +176,25 @@ def masked_scale_fence4(
 ) -> torch.Tensor:
     """`masked_scale_fence` emitting the (B, T, H, W) NCHW conv input; the
     ring's F must equal H * W."""
-    B, T, F = _check_fence("masked_scale_fence4", ring, valid)
-    if F != H * W:
-        raise ValueError(f"masked_scale_fence4: F = {F} is not H*W = {H}*{W}")
-    if not on_card("masked_scale_fence4", ring):
-        return masked_scale_fence4_reference(ring, valid, H=H, W=W, div=div)
-    out = torch.empty((B, T, H, W), dtype=ring.dtype, device=ring.device)
-    if out.numel() == 0:
+    with profiling.span("op.masked_scale_fence4"):
+        B, T, F = _check_fence("masked_scale_fence4", ring, valid)
+        if F != H * W:
+            raise ValueError(f"masked_scale_fence4: F = {F} is not H*W = {H}*{W}")
+        if not on_card("masked_scale_fence4", ring):
+            return masked_scale_fence4_reference(ring, valid, H=H, W=W, div=div)
+        out = torch.empty((B, T, H, W), dtype=ring.dtype, device=ring.device)
+        if out.numel() == 0:
+            return out
+        with torch.cuda.device(ring.device):
+            stream = torch.cuda.current_stream(ring.device).cuda_stream
+            err = _kernel_lib().masked_scale_fence4(
+                ring.data_ptr(), valid.data_ptr(), out.data_ptr(), B, T, F, H, W,
+                _ELEM[ring.dtype], int(div != 1.0), _reciprocal(div), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"masked_scale_fence4 kernel launch failed: CUDA error {err}")
+        masked_scale_fence4.launches += 1
         return out
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = _kernel_lib().masked_scale_fence4(
-            ring.data_ptr(), valid.data_ptr(), out.data_ptr(), B, T, F, H, W,
-            _ELEM[ring.dtype], int(div != 1.0), _reciprocal(div), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"masked_scale_fence4 kernel launch failed: CUDA error {err}")
-    masked_scale_fence4.launches += 1
-    return out
 
 
 masked_scale_fence4.launches = 0

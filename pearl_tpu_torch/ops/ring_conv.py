@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from pearl_tpu_torch.ops._build import load_library, on_card
+from pearl_tpu_torch.utils import profiling
 
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
 # Limits of `csrc/ring_conv.cu`: the output channels a thread can hold in
@@ -225,34 +226,35 @@ def ring_conv1(
            by the cursor and scaled by any input normalisation
     bias:  (OC,)
     Returns (B, OC, OH, OW) in the ring's dtype."""
-    _check(ring, valid, wmat, bias, H, W, k, s)
-    if not on_card("ring_conv1", ring):
-        return ring_conv1_reference(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
-    if not ring.is_contiguous() or not valid.is_contiguous():
-        raise ValueError("ring_conv1: ring and valid must be contiguous")
-    B, T, _ = ring.shape
-    OC = wmat.shape[1]
-    OH, OW = (H - k) // s + 1, (W - k) // s + 1
-    out = torch.empty((B, OC, OH, OW), dtype=ring.dtype, device=ring.device)
-    if B == 0:
+    with profiling.span("op.ring_conv1"):
+        _check(ring, valid, wmat, bias, H, W, k, s)
+        if not on_card("ring_conv1", ring):
+            return ring_conv1_reference(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)
+        if not ring.is_contiguous() or not valid.is_contiguous():
+            raise ValueError("ring_conv1: ring and valid must be contiguous")
+        B, T, _ = ring.shape
+        OC = wmat.shape[1]
+        OH, OW = (H - k) // s + 1, (W - k) // s + 1
+        out = torch.empty((B, OC, OH, OW), dtype=ring.dtype, device=ring.device)
+        if B == 0:
+            return out
+        # The weights as the kernel multiplies them: in the ring's dtype.
+        w = wmat.to(ring.dtype).contiguous()
+        if w.data_ptr() % 16:  # a view into a larger buffer: the kernel reads 16-byte pieces
+            w = w.clone()
+        b32 = bias.to(torch.float32).contiguous()
+        picked = ctypes.c_int(-1)
+        with torch.cuda.device(ring.device):
+            stream = torch.cuda.current_stream(ring.device).cuda_stream
+            err = _kernel_lib().ring_conv1(
+                ring.data_ptr(), valid.data_ptr(), w.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                B, T, H, W, k, s, OC, _ELEM[ring.dtype], stream, ctypes.byref(picked),
+            )
+        if err != 0:
+            raise RuntimeError(f"ring_conv1 kernel launch failed: CUDA error {err}")
+        ring_conv1.launches += 1
+        ring_conv1.mma_launches += BODIES[picked.value] == "mma"
         return out
-    # The weights as the kernel multiplies them: in the ring's dtype.
-    w = wmat.to(ring.dtype).contiguous()
-    if w.data_ptr() % 16:  # a view into a larger buffer: the kernel reads 16-byte pieces
-        w = w.clone()
-    b32 = bias.to(torch.float32).contiguous()
-    picked = ctypes.c_int(-1)
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = _kernel_lib().ring_conv1(
-            ring.data_ptr(), valid.data_ptr(), w.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            B, T, H, W, k, s, OC, _ELEM[ring.dtype], stream, ctypes.byref(picked),
-        )
-    if err != 0:
-        raise RuntimeError(f"ring_conv1 kernel launch failed: CUDA error {err}")
-    ring_conv1.launches += 1
-    ring_conv1.mma_launches += BODIES[picked.value] == "mma"
-    return out
 
 
 ring_conv1.launches = 0

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from pearl_tpu_torch.ops._build import load_library, on_card
+from pearl_tpu_torch.utils import profiling
 
 
 def ring_write_reference(ring: torch.Tensor, entry: torch.Tensor, cursor: int) -> torch.Tensor:
@@ -97,23 +98,24 @@ def ring_write(ring: torch.Tensor, entry: torch.Tensor, cursor: int) -> torch.Te
 
     ring (B, T, F) contiguous; entry (B, F) of the ring's dtype and device;
     cursor a host integer in [0, T)."""
-    _check("ring_write", ring, cursor, entry=entry)
-    if not on_card("ring_write", ring):
-        return ring_write_reference(ring, entry, int(cursor))
-    B, T, F = ring.shape
-    if B == 0 or F == 0:
+    with profiling.span("op.ring_write"):
+        _check("ring_write", ring, cursor, entry=entry)
+        if not on_card("ring_write", ring):
+            return ring_write_reference(ring, entry, int(cursor))
+        B, T, F = ring.shape
+        if B == 0 or F == 0:
+            return ring
+        size = ring.element_size()
+        with torch.cuda.device(ring.device):
+            stream = torch.cuda.current_stream(ring.device).cuda_stream
+            err = _kernel_lib().ring_write(
+                ring.data_ptr(), entry.data_ptr(), entry.stride(0) * size,
+                B, T, F * size, int(cursor), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"ring_write kernel launch failed: CUDA error {err}")
+        ring_write.launches += 1
         return ring
-    size = ring.element_size()
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = _kernel_lib().ring_write(
-            ring.data_ptr(), entry.data_ptr(), entry.stride(0) * size,
-            B, T, F * size, int(cursor), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ring_write kernel launch failed: CUDA error {err}")
-    ring_write.launches += 1
-    return ring
 
 
 ring_write.launches = 0
@@ -127,25 +129,26 @@ def ring_write_where(
 
     ring (B, T, F) contiguous; obs and reset (B, F) of the ring's dtype and
     device; done (B,) bool; cursor a host integer in [0, T)."""
-    _check("ring_write_where", ring, cursor, obs=obs, reset=reset)
-    _check_done("ring_write_where", ring, done)
-    if not on_card("ring_write_where", ring):
-        return ring_write_where_reference(ring, obs, reset, done, int(cursor))
-    B, T, F = ring.shape
-    if B == 0 or F == 0:
+    with profiling.span("op.ring_write_where"):
+        _check("ring_write_where", ring, cursor, obs=obs, reset=reset)
+        _check_done("ring_write_where", ring, done)
+        if not on_card("ring_write_where", ring):
+            return ring_write_where_reference(ring, obs, reset, done, int(cursor))
+        B, T, F = ring.shape
+        if B == 0 or F == 0:
+            return ring
+        size = ring.element_size()
+        with torch.cuda.device(ring.device):
+            stream = torch.cuda.current_stream(ring.device).cuda_stream
+            err = _kernel_lib().ring_write_where(
+                ring.data_ptr(), obs.data_ptr(), obs.stride(0) * size,
+                reset.data_ptr(), reset.stride(0) * size, done.data_ptr(),
+                B, T, F * size, int(cursor), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"ring_write_where kernel launch failed: CUDA error {err}")
+        ring_write_where.launches += 1
         return ring
-    size = ring.element_size()
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = _kernel_lib().ring_write_where(
-            ring.data_ptr(), obs.data_ptr(), obs.stride(0) * size,
-            reset.data_ptr(), reset.stride(0) * size, done.data_ptr(),
-            B, T, F * size, int(cursor), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ring_write_where kernel launch failed: CUDA error {err}")
-    ring_write_where.launches += 1
-    return ring
 
 
 ring_write_where.launches = 0

@@ -37,6 +37,7 @@ from pearl_tpu_torch.policy_learners.exploration_modules.common import (
     model_action_index,
 )
 from pearl_tpu_torch.replay_buffers.transition import TransitionBatch
+from pearl_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -150,16 +151,19 @@ class PolicyLearner(abc.ABC):
         rounds = []
         for r in range(self.training_rounds):
             idx = None if indices is None else indices[r]
-            if prioritized:
-                batch, idx = buffer.sample_with_indices(
-                    buffer_state, generator, self.batch_size, indices=idx
-                )
-            else:
-                batch = buffer.sample(buffer_state, generator, self.batch_size, indices=idx)
-            if batch_transform is not None:
-                batch = batch_transform(batch)
-            batch = self.preprocess_batch(state, batch)
-            state, metrics = self.learn_batch(state, batch)
+            with profiling.span("replay.sample"):
+                profiling.count("replay.rows_sampled", self.batch_size)
+                if prioritized:
+                    batch, idx = buffer.sample_with_indices(
+                        buffer_state, generator, self.batch_size, indices=idx
+                    )
+                else:
+                    batch = buffer.sample(buffer_state, generator, self.batch_size, indices=idx)
+            with profiling.span("learner.update"):
+                if batch_transform is not None:
+                    batch = batch_transform(batch)
+                batch = self.preprocess_batch(state, batch)
+                state, metrics = self.learn_batch(state, batch)
             if prioritized and "per_sample_td" in metrics:
                 buffer_state = buffer.update_priorities(
                     buffer_state, idx, metrics["per_sample_td"]

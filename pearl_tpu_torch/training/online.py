@@ -64,6 +64,7 @@ from pearl_tpu_torch.agent.pearl_agent import AgentState, PearlAgent
 from pearl_tpu_torch.envs.vector import VectorEnv
 from pearl_tpu_torch.parallel.data_parallel import Mesh, rank_seed, with_pmean_axis
 from pearl_tpu_torch.utils.collectives import MeshAxis, broadcast_bytes, gather_blocks, psum
+from pearl_tpu_torch.utils import profiling
 from pearl_tpu_torch.utils.device import DeviceLike, make_generator, resolve_device
 from pearl_tpu_torch.utils.pytree import named_leaves, tree_map
 
@@ -221,39 +222,49 @@ def _make_chunk_fn(
     device accounting, which the dispatch updates."""
 
     def run_chunk(astate, env_states, ep_ret, ep_aux, generator):
-        ep_cost, ep_risky, ep_len = ep_aux
-        for _ in range(chunks_per_dispatch):
-            transitions = []
-            for _ in range(steps_per_chunk):
-                astate, choice = agent.act(astate, generator, exploit=exploit)
-                env_states, result, next_obs = venv.step(env_states, choice.action, generator)
+        with profiling.span("driver.dispatch"):
+            profiling.count("driver.dispatches")
+            ep_cost, ep_risky, ep_len = ep_aux
+            for _ in range(chunks_per_dispatch):
+                transitions = []
+                for _ in range(steps_per_chunk):
+                    profiling.count("driver.vector_steps")
+                    astate, choice = agent.act(astate, generator, exploit=exploit)
+                    env_states, result, next_obs = venv.step(env_states, choice.action, generator)
+                    if deferred_push:
+                        astate, transition = agent.observe_deferred(
+                            astate, result, next_obs, generator
+                        )
+                        transitions.append(transition)
+                    else:
+                        astate = agent.observe(astate, result, next_obs, generator)
+                    ep_ret = ep_ret + result.reward
+                    cost = (
+                        result.cost if result.cost is not None else torch.zeros_like(result.reward)
+                    )
+                    risky = result.info["risky_sa"] if "risky_sa" in result.info else cost != 0
+                    ep_cost = ep_cost + cost
+                    ep_risky = ep_risky + risky.to(torch.float32)
+                    ep_len = ep_len + 1.0
+                    done = result.done
+                    stats.step(done, ep_ret, ep_cost, ep_risky / torch.clamp(ep_len, min=1.0))
+                    ep_ret = torch.where(done, 0.0, ep_ret)
+                    ep_cost = torch.where(done, 0.0, ep_cost)
+                    ep_risky = torch.where(done, 0.0, ep_risky)
+                    ep_len = torch.where(done, 0.0, ep_len)
                 if deferred_push:
-                    astate, transition = agent.observe_deferred(astate, result, next_obs, generator)
-                    transitions.append(transition)
-                else:
-                    astate = agent.observe(astate, result, next_obs, generator)
-                ep_ret = ep_ret + result.reward
-                cost = result.cost if result.cost is not None else torch.zeros_like(result.reward)
-                risky = result.info["risky_sa"] if "risky_sa" in result.info else cost != 0
-                ep_cost = ep_cost + cost
-                ep_risky = ep_risky + risky.to(torch.float32)
-                ep_len = ep_len + 1.0
-                done = result.done
-                stats.step(done, ep_ret, ep_cost, ep_risky / torch.clamp(ep_len, min=1.0))
-                ep_ret = torch.where(done, 0.0, ep_ret)
-                ep_cost = torch.where(done, 0.0, ep_cost)
-                ep_risky = torch.where(done, 0.0, ep_risky)
-                ep_len = torch.where(done, 0.0, ep_len)
-            if deferred_push:
-                # One step-major push of k * B rows.
-                flat = tree_map(lambda *xs: torch.cat(xs), *transitions)
-                astate = dataclasses.replace(
-                    astate, replay=agent.replay_buffer.push(astate.replay, flat, generator)
-                )
-            if do_learn:
-                astate, _ = agent.learn(astate, generator)
-            stats.end_chunk()
-        return astate, env_states, ep_ret, (ep_cost, ep_risky, ep_len), stats.end_dispatch()
+                    # One step-major push of k * B rows.
+                    flat = tree_map(lambda *xs: torch.cat(xs), *transitions)
+                    with profiling.span("replay.push"):
+                        profiling.count("replay.rows_pushed", flat.reward.shape[0])
+                        astate = dataclasses.replace(
+                            astate, replay=agent.replay_buffer.push(astate.replay, flat, generator)
+                        )
+                if do_learn:
+                    profiling.count("driver.learns")
+                    astate, _ = agent.learn(astate, generator)
+                stats.end_chunk()
+            return astate, env_states, ep_ret, (ep_cost, ep_risky, ep_len), stats.end_dispatch()
 
     return run_chunk
 
@@ -301,7 +312,7 @@ def _assert_replicated(agent_state: AgentState, axis: MeshAxis) -> None:
         device=axis.device,
     )
     (differs,) = psum([differs], axis)
-    bad = [names[i] for i in torch.nonzero(differs).reshape(-1).tolist()]
+    bad = [names[i] for i in np.flatnonzero(profiling.host_read(differs).numpy())]
     if bad:
         raise ValueError(
             "replication check failed: these learner/safety state leaves differ across the "
@@ -351,195 +362,199 @@ def online_learning(
     another mesh width). `check_replication=True` checks, after the first
     dispatch that learned, that the learner and safety states are the same
     on every rank, and raises naming the leaves that are not."""
-    if stats not in _STATS_MODES:
-        raise ValueError(f"stats must be one of {_STATS_MODES}, got {stats!r}")
-    axis = None
-    if mesh is not None:
-        if not isinstance(mesh, Mesh):
-            raise TypeError(
-                "mesh must be a Mesh from pearl_tpu_torch.parallel.make_mesh, got "
-                f"{type(mesh).__name__}"
-            )
-        axis = mesh.axis(mesh_axis)
-        if device is not None and resolve_device(device) != axis.device:
-            raise ValueError(f"device={device!r} is not the mesh's device {axis.device}")
-        device = axis.device
-        if num_envs % axis.size != 0:
-            raise ValueError(
-                f"num_envs={num_envs} must divide evenly over the {axis.size}-device mesh"
-            )
-        agent = with_pmean_axis(agent, axis)
-    n_dev = 1 if axis is None else axis.size
-    rank = 0 if axis is None else axis.rank
-    if isinstance(agent_state, (list, tuple)):
-        if len(agent_state) != n_dev:
-            raise ValueError(
-                f"agent_state holds {len(agent_state)} per-rank states for a mesh of {n_dev}: "
-                f"use parallel.reshard_agent_state(states, {n_dev}) first"
-            )
-        agent_state = agent_state[rank]
-    deferred_push = bool(deferred_push)
-    if deferred_push and not agent.replay_buffer.supports_deferred_push:
-        raise ValueError(
-            f"{type(agent.replay_buffer).__name__} does not support deferred "
-            "(chunk-granular) pushes"
-        )
-    envs_per_dev = num_envs // n_dev
-    if stats == "curves" and envs_per_dev > curve_capacity:
-        warnings.warn(
-            f"stats='curves' with {envs_per_dev} envs a rank (num_envs={num_envs} over "
-            f"{n_dev}) > curve_capacity={curve_capacity}: if more than curve_capacity "
-            "episodes finish in one step on one rank, the oldest of them are dropped "
-            "(counted in episodes_dropped). Raise curve_capacity to at least the envs a "
-            "rank to rule this out.",
-            stacklevel=2,
-        )
-    min_pushes = getattr(agent.replay_buffer, "min_pushes_before_sample", 1)
-    if learn and min_pushes > 1 and learning_starts == 0 and learn_every_k_steps < min_pushes:
-        # VisualReplayBuffer(dedup_next=True) excludes the newest resident
-        # push from sampling; learning off a 1-push buffer would resample
-        # that push with a zeroed next frame.
-        raise ValueError(
-            f"{type(agent.replay_buffer).__name__} needs {min_pushes} pushes before its "
-            f"first sample (min_pushes_before_sample), but learning_starts=0 with "
-            f"learn_every_k_steps={learn_every_k_steps} would learn after "
-            f"{learn_every_k_steps}. Set learning_starts >= {min_pushes} * num_envs or "
-            f"learn_every_k_steps >= {min_pushes}."
-        )
-    device = resolve_device(device)
-    agent = agent.for_env(env)
-    venv = VectorEnv(env, envs_per_dev, device)
-    generator = make_generator(rank_seed(seed, rank), device)
-
-    if env_states is None:
-        env_states, obs = venv.reset(generator)
-        if agent_state is None:
-            agent_state = agent.init(seed, venv.observation_dim, envs_per_dev, obs, device=device)
-        else:
-            agent_state = dataclasses.replace(
-                agent_state,
-                **agent.fresh_per_env_state(
-                    venv.observation_dim, envs_per_dev, obs, device,
-                    params=agent.cache_params(agent_state.learner),
-                ),
-            )
-
-    if stats == "curves":
-        accounting = _CurveStats(envs_per_dev, device, curve_capacity)
-    else:
-        accounting = (_SummaryStats if stats == "summary" else _FullStats)(envs_per_dev, device)
-
-    def chunk_fn(do_learn):
-        return _make_chunk_fn(agent, venv, learn_every_k_steps, do_learn, exploit,
-                              chunks_per_dispatch, accounting, deferred_push)
-
-    run_chunk = chunk_fn(learn)
-    warm_chunk = chunk_fn(False) if learning_starts > 0 else None
-
-    ep_ret = torch.zeros((envs_per_dev,), device=device)
-    ep_aux = tuple(torch.zeros((envs_per_dev,), device=device) for _ in range(3))
-    finished: list = []
-    finished_costs: list = []
-    finished_risky: list = []
-    curve: list = []
-    last_summary = np.zeros((6,))
-    drains = [RingDrain() for _ in range(n_dev)]  # curves: one ring a rank
-    total = 0
-    reached = False
-    verbose = verbose and rank == 0
-
-    def consume(stats_dev, steps_done):
-        """Fetch one dispatch's stats, folded over the ranks (one
-        device-to-host copy), and fold its finished episodes in."""
-        nonlocal reached, last_summary
-        arr = stats_dev.cpu().numpy()
-        if stats == "summary":
-            rows = arr
-            curve.extend(rows[:, _S_RECENT].tolist())
-            last_summary = rows[-1]
-            if verbose:
-                print(
-                    f"steps={steps_done} episodes={int(last_summary[_S_TOTAL_FIN])} "
-                    f"recent_return={last_summary[_S_RECENT]:.1f}"
+    with profiling.span("driver.call"):
+        if stats not in _STATS_MODES:
+            raise ValueError(f"stats must be one of {_STATS_MODES}, got {stats!r}")
+        axis = None
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    "mesh must be a Mesh from pearl_tpu_torch.parallel.make_mesh, got "
+                    f"{type(mesh).__name__}"
                 )
-            if target_return is not None:
-                hit = (
-                    (rows[:, _S_TOTAL_FIN] >= target_window)
-                    & (rows[:, _S_ENVS_FIN] >= min(target_window, num_envs))
-                    & (rows[:, _S_RECENT] >= target_return)
+            axis = mesh.axis(mesh_axis)
+            if device is not None and resolve_device(device) != axis.device:
+                raise ValueError(f"device={device!r} is not the mesh's device {axis.device}")
+            device = axis.device
+            if num_envs % axis.size != 0:
+                raise ValueError(
+                    f"num_envs={num_envs} must divide evenly over the {axis.size}-device mesh"
                 )
-                reached = reached or bool(hit.any())
-            return
+            agent = with_pmean_axis(agent, axis)
+        n_dev = 1 if axis is None else axis.size
+        rank = 0 if axis is None else axis.rank
+        if isinstance(agent_state, (list, tuple)):
+            if len(agent_state) != n_dev:
+                raise ValueError(
+                    f"agent_state holds {len(agent_state)} per-rank states for a mesh of {n_dev}: "
+                    f"use parallel.reshard_agent_state(states, {n_dev}) first"
+                )
+            agent_state = agent_state[rank]
+        deferred_push = bool(deferred_push)
+        if deferred_push and not agent.replay_buffer.supports_deferred_push:
+            raise ValueError(
+                f"{type(agent.replay_buffer).__name__} does not support deferred "
+                "(chunk-granular) pushes"
+            )
+        envs_per_dev = num_envs // n_dev
+        if stats == "curves" and envs_per_dev > curve_capacity:
+            warnings.warn(
+                f"stats='curves' with {envs_per_dev} envs a rank (num_envs={num_envs} over "
+                f"{n_dev}) > curve_capacity={curve_capacity}: if more than curve_capacity "
+                "episodes finish in one step on one rank, the oldest of them are dropped "
+                "(counted in episodes_dropped). Raise curve_capacity to at least the envs a "
+                "rank to rule this out.",
+                stacklevel=2,
+            )
+        min_pushes = getattr(agent.replay_buffer, "min_pushes_before_sample", 1)
+        if learn and min_pushes > 1 and learning_starts == 0 and learn_every_k_steps < min_pushes:
+            # VisualReplayBuffer(dedup_next=True) excludes the newest resident
+            # push from sampling; learning off a 1-push buffer would resample
+            # that push with a zeroed next frame.
+            raise ValueError(
+                f"{type(agent.replay_buffer).__name__} needs {min_pushes} pushes before its "
+                f"first sample (min_pushes_before_sample), but learning_starts=0 with "
+                f"learn_every_k_steps={learn_every_k_steps} would learn after "
+                f"{learn_every_k_steps}. Set learning_starts >= {min_pushes} * num_envs or "
+                f"learn_every_k_steps >= {min_pushes}."
+            )
+        device = resolve_device(device)
+        agent = agent.for_env(env)
+        venv = VectorEnv(env, envs_per_dev, device)
+        generator = make_generator(rank_seed(seed, rank), device)
+
+        if env_states is None:
+            env_states, obs = venv.reset(generator)
+            if agent_state is None:
+                agent_state = agent.init(
+                    seed, venv.observation_dim, envs_per_dev, obs, device=device
+                )
+            else:
+                agent_state = dataclasses.replace(
+                    agent_state,
+                    **agent.fresh_per_env_state(
+                        venv.observation_dim, envs_per_dev, obs, device,
+                        params=agent.cache_params(agent_state.learner),
+                    ),
+                )
+
         if stats == "curves":
-            # Each rank's ring in rank order, as the reference drains its devices.
-            episodes = np.concatenate([
-                drain.drain(int(block[-2:].view(np.int64)[0]),
-                            block[:-2].view(np.float32).reshape(3, curve_capacity))
-                for drain, block in zip(drains, arr)
-            ])
-            ret, cost, risky = episodes[:, 0], episodes[:, 1], episodes[:, 2]
+            accounting = _CurveStats(envs_per_dev, device, curve_capacity)
         else:
-            # (ranks, 4, steps, B) -> (4, steps, ranks * B): step-major, env
-            # order within a step rank-blocked.
-            arr = np.concatenate(list(arr), axis=-1)
-            d = arr[0].reshape(-1) > 0.5
-            ret, cost, risky = (arr[i].reshape(-1)[d] for i in (1, 2, 3))
-        finished.extend(ret.tolist())
-        finished_costs.extend(cost.tolist())
-        finished_risky.extend(risky.tolist())
-        if verbose and finished:
-            window = finished[-target_window:]
-            print(
-                f"steps={steps_done} episodes={len(finished)} "
-                f"avg_return={np.mean(window):.1f}"
-            )
-        if target_return is not None and len(finished) >= target_window:
-            if np.mean(finished[-target_window:]) >= target_return:
-                reached = True
+            accounting = (_SummaryStats if stats == "summary" else _FullStats)(envs_per_dev, device)
 
-    pending = None  # (stats on the device, total steps after that dispatch)
-    replication_checked = not (check_replication and axis is not None and learn)
-    while total < max_steps and not reached:
-        learning_now = not (warm_chunk is not None and total < learning_starts)
-        chunk = run_chunk if learning_now else warm_chunk
-        agent_state, env_states, ep_ret, ep_aux, stats_dev = chunk(
-            agent_state, env_states, ep_ret, ep_aux, generator
-        )
-        stats_dev = _fold_stats(stats_dev, stats, axis)
-        total += learn_every_k_steps * num_envs * chunks_per_dispatch
-        if learning_now and not replication_checked:
-            _assert_replicated(agent_state, axis)
-            replication_checked = True
+        def chunk_fn(do_learn):
+            return _make_chunk_fn(agent, venv, learn_every_k_steps, do_learn, exploit,
+                                  chunks_per_dispatch, accounting, deferred_push)
+
+        run_chunk = chunk_fn(learn)
+        warm_chunk = chunk_fn(False) if learning_starts > 0 else None
+
+        ep_ret = torch.zeros((envs_per_dev,), device=device)
+        ep_aux = tuple(torch.zeros((envs_per_dev,), device=device) for _ in range(3))
+        finished: list = []
+        finished_costs: list = []
+        finished_risky: list = []
+        curve: list = []
+        last_summary = np.zeros((6,))
+        drains = [RingDrain() for _ in range(n_dev)]  # curves: one ring a rank
+        total = 0
+        reached = False
+        verbose = verbose and rank == 0
+
+        def consume(stats_dev, steps_done):
+            """Fetch one dispatch's stats, folded over the ranks (one
+            device-to-host copy), and fold its finished episodes in."""
+            nonlocal reached, last_summary
+            with profiling.span("driver.fetch"):
+                arr = profiling.host_read(stats_dev).numpy()
+            if stats == "summary":
+                rows = arr
+                curve.extend(rows[:, _S_RECENT].tolist())
+                last_summary = rows[-1]
+                if verbose:
+                    print(
+                        f"steps={steps_done} episodes={int(last_summary[_S_TOTAL_FIN])} "
+                        f"recent_return={last_summary[_S_RECENT]:.1f}"
+                    )
+                if target_return is not None:
+                    hit = (
+                        (rows[:, _S_TOTAL_FIN] >= target_window)
+                        & (rows[:, _S_ENVS_FIN] >= min(target_window, num_envs))
+                        & (rows[:, _S_RECENT] >= target_return)
+                    )
+                    reached = reached or bool(hit.any())
+                return
+            if stats == "curves":
+                # Each rank's ring in rank order, as the reference drains its devices.
+                episodes = np.concatenate([
+                    drain.drain(int(block[-2:].view(np.int64)[0]),
+                                block[:-2].view(np.float32).reshape(3, curve_capacity))
+                    for drain, block in zip(drains, arr)
+                ])
+                ret, cost, risky = episodes[:, 0], episodes[:, 1], episodes[:, 2]
+            else:
+                # (ranks, 4, steps, B) -> (4, steps, ranks * B): step-major, env
+                # order within a step rank-blocked.
+                arr = np.concatenate(list(arr), axis=-1)
+                d = arr[0].reshape(-1) > 0.5
+                ret, cost, risky = (arr[i].reshape(-1)[d] for i in (1, 2, 3))
+            finished.extend(ret.tolist())
+            finished_costs.extend(cost.tolist())
+            finished_risky.extend(risky.tolist())
+            if verbose and finished:
+                window = finished[-target_window:]
+                print(
+                    f"steps={steps_done} episodes={len(finished)} "
+                    f"avg_return={np.mean(window):.1f}"
+                )
+            if target_return is not None and len(finished) >= target_window:
+                if np.mean(finished[-target_window:]) >= target_return:
+                    reached = True
+
+        pending = None  # (stats on the device, total steps after that dispatch)
+        replication_checked = not (check_replication and axis is not None and learn)
+        while total < max_steps and not reached:
+            learning_now = not (warm_chunk is not None and total < learning_starts)
+            chunk = run_chunk if learning_now else warm_chunk
+            agent_state, env_states, ep_ret, ep_aux, stats_dev = chunk(
+                agent_state, env_states, ep_ret, ep_aux, generator
+            )
+            stats_dev = _fold_stats(stats_dev, stats, axis)
+            total += learn_every_k_steps * num_envs * chunks_per_dispatch
+            if learning_now and not replication_checked:
+                _assert_replicated(agent_state, axis)
+                replication_checked = True
+            if pending is not None:
+                consume(*pending)
+            pending = (stats_dev, total)
         if pending is not None:
             consume(*pending)
-        pending = (stats_dev, total)
-    if pending is not None:
-        consume(*pending)
-    if stats == "summary":
-        n_ep = int(last_summary[_S_TOTAL_FIN])
+        if stats == "summary":
+            n_ep = int(last_summary[_S_TOTAL_FIN])
+            return OnlineResult(
+                episode_returns=np.zeros((0,)),
+                total_steps=total,
+                agent_state=agent_state,
+                env_states=env_states,
+                reached_target=reached,
+                episode_costs=np.zeros((0,)),
+                episode_risky_ratios=np.zeros((0,)),
+                return_curve=np.asarray(curve),
+                total_episodes=n_ep,
+                mean_return=float(last_summary[_S_SUM_RET] / max(n_ep, 1)),
+                mean_cost=float(last_summary[_S_SUM_COST] / max(n_ep, 1)),
+                mean_risky_ratio=float(last_summary[_S_SUM_RISKY] / max(n_ep, 1)),
+            )
         return OnlineResult(
-            episode_returns=np.zeros((0,)),
+            episode_returns=np.asarray(finished),
             total_steps=total,
             agent_state=agent_state,
             env_states=env_states,
             reached_target=reached,
-            episode_costs=np.zeros((0,)),
-            episode_risky_ratios=np.zeros((0,)),
-            return_curve=np.asarray(curve),
-            total_episodes=n_ep,
-            mean_return=float(last_summary[_S_SUM_RET] / max(n_ep, 1)),
-            mean_cost=float(last_summary[_S_SUM_COST] / max(n_ep, 1)),
-            mean_risky_ratio=float(last_summary[_S_SUM_RISKY] / max(n_ep, 1)),
+            episode_costs=np.asarray(finished_costs),
+            episode_risky_ratios=np.asarray(finished_risky),
+            # curves: the lifetime count, dropped episodes included.
+            total_episodes=sum(d.total for d in drains) if stats == "curves" else len(finished),
+            episodes_dropped=sum(d.dropped for d in drains),
         )
-    return OnlineResult(
-        episode_returns=np.asarray(finished),
-        total_steps=total,
-        agent_state=agent_state,
-        env_states=env_states,
-        reached_target=reached,
-        episode_costs=np.asarray(finished_costs),
-        episode_risky_ratios=np.asarray(finished_risky),
-        # curves: the lifetime count, dropped episodes included.
-        total_episodes=sum(d.total for d in drains) if stats == "curves" else len(finished),
-        episodes_dropped=sum(d.dropped for d in drains),
-    )
