@@ -22,7 +22,9 @@ done-chain mask, and the sequence tag kills frames lost to ring wrap,
 overwrite or underfill.
 
 Differences from the reference, by design: storage is written in place, and
-cursor, size and push count are host integers (no device sync per push).
+cursor, size and push count are host integers; the push count reaches the
+device's sequence tag as a fill kernel's argument, so a push never waits for
+the device.
 `push_frames` writes the masked `frame_t` slab on EVERY push, where the
 reference skips the write under a `lax.cond` when no row is truncated: a
 data-dependent branch would make the host wait on the device each step. The
@@ -153,7 +155,9 @@ class VisualReplayBuffer(BasicReplayBuffer):
             return buf
 
         write_rows(st["frame_s"], frame_s)
-        st["seq"][slot] = state.push_count
+        # fill_ takes the tag as a kernel argument; `seq[slot] = count` would
+        # copy a host scalar from pageable memory and wait for the device.
+        st["seq"][slot].fill_(state.push_count)
         tree_map(write_rows, st["rest"], dataclasses.replace(rest, state=None, next_state=None))
         if not self.dedup_next:
             write_rows(st["frame_n"], frame_n)

@@ -7,10 +7,12 @@ one call.
 On the CPU: tracing off records nothing and changes nothing; the span tree,
 the counters, self time and the registry; each span inside the profiler's
 range of its name. On the card (`cuda`): the program's clock against the
-profiler's, and the kernel launches inside the program's record of their
-span."""
+profiler's, the kernel launches inside the program's record of their span,
+a dispatch whose one host sync is the fetch of its statistics, and replay
+pushes that never wait for the device."""
 
 import collections
+import dataclasses
 import json
 import statistics
 
@@ -23,7 +25,7 @@ from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummar
 from pearl_tpu_torch.neural_networks import CNNQValueNetwork
 from pearl_tpu_torch.policy_learners.exploration_modules import EGreedyExploration
 from pearl_tpu_torch.policy_learners.sequential_decision_making import DeepQLearning
-from pearl_tpu_torch.replay_buffers import VisualReplayBuffer
+from pearl_tpu_torch.replay_buffers import TransitionBatch, VisualReplayBuffer
 from pearl_tpu_torch.training.online import online_learning
 from pearl_tpu_torch.utils import profiling
 from pearl_tpu_torch.utils.pytree import compare
@@ -39,7 +41,7 @@ LEARNS = CHUNKS * DISPATCHES
 RANGE_TOLERANCE_NS = 5_000
 
 
-def _agent_and_env():
+def _agent_and_env(num_envs=B):
     env = SyntheticAtari(height=84, width=84, frames=1, num_actions=6, episode_len=128,
                          obs_dtype=torch.bfloat16)
     learner = DeepQLearning(
@@ -55,7 +57,7 @@ def _agent_and_env():
         act_dtype="bfloat16",
         history_summarizer=FrameRingHistorySummarization(history_length=4, dtype=torch.bfloat16),
     )
-    replay = VisualReplayBuffer(capacity=B * 96, stack=4, num_envs=B,
+    replay = VisualReplayBuffer(capacity=num_envs * 96, stack=4, num_envs=num_envs,
                                 frame_dtype=torch.bfloat16, dedup_next=True)
     return PearlAgent(policy_learner=learner, replay_buffer=replay), env
 
@@ -284,3 +286,85 @@ def test_syncs_inside_spans_are_caught_and_counted_once_on_card():
     assert profiling.counters() == {"driver.host_syncs": 2}
     assert torch.cuda.get_sync_debug_mode() == 0
     profiling.reset()
+
+
+@pytest.mark.cuda
+def test_a_pixel_dispatch_syncs_the_host_only_at_its_fetch_on_card():
+    """One `online_learning` call of one dispatch at 64 envs, carrying the
+    state of a warm call as the benchmark's window does: the fetch of its
+    statistics is its one host sync, so the host can queue the dispatch's
+    steps ahead of the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA's sync debug mode")
+    envs = 64
+    agent, env = _agent_and_env(envs)
+    kw = dict(num_envs=envs, max_steps=K * CHUNKS * envs, learn_every_k_steps=K,
+              chunks_per_dispatch=CHUNKS, stats="summary", device="cuda")
+    warm = online_learning(agent, env, seed=7, **kw)  # builds the kernels, fills the replay
+    torch.cuda.synchronize()
+    profiling.reset()
+    profiling.enable()
+    try:
+        res = online_learning(agent, env, seed=8, agent_state=warm.agent_state,
+                              env_states=warm.env_states, **kw)
+    finally:
+        profiling.disable()
+    sites, counters = profiling.host_syncs_by_span(), profiling.counters()
+    profiling.reset()
+    assert sites == {"driver.fetch": 1}
+    assert counters["driver.host_syncs"] == 1
+    assert counters["driver.learns"] == CHUNKS and counters["driver.dispatches"] == 1
+    assert res.agent_state.replay.push_count == 2 * K * CHUNKS
+
+
+def _pushes(n, envs, frame, device):
+    """(frame_s, frame_n, rest) of `n` pushes with episode ends among them."""
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for p in range(n):
+        ends = torch.rand((2, envs), generator=gen) < 0.2
+        rest = TransitionBatch(
+            state=None, action=torch.randint(0, 6, (envs, 1), generator=gen).float(),
+            reward=torch.rand((envs,), generator=gen), next_state=None,
+            terminated=ends[0], truncated=ends[1] & ~ends[0],
+            action_index=torch.randint(0, 6, (envs,), generator=gen, dtype=torch.int32),
+        )
+        frames = torch.rand((2, envs, frame), generator=gen) * 255
+        out.append((frames[0].to(device), frames[1].to(device),
+                    TransitionBatch(**{k: None if v is None else v.to(device)
+                                       for k, v in vars(rest).items()})))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dedup_next", [False, True])
+def test_replay_pushes_never_wait_for_the_card(dedup_next):
+    """`push_frames` through a ring of 5 slabs, 11 pushes (two wraps), on the
+    card under `set_sync_debug_mode("error")`: no push may wait for the
+    device, and the storage equals that of the same pushes on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA's sync debug mode")
+    envs, frame, n = 8, 12, 11
+    buf = VisualReplayBuffer(capacity=5 * envs, stack=4, num_envs=envs,
+                             frame_dtype=torch.bfloat16, dedup_next=dedup_next)
+    states = {}
+    for device in ("cuda", "cpu"):
+        example = _pushes(1, 1, 4 * frame, device)[0]
+        state = buf.init(dataclasses.replace(example[2], state=example[0], next_state=example[1]))
+        pushes = _pushes(n, envs, frame, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for frame_s, frame_n, rest in pushes:
+                state = buf.push_frames(state, frame_s, frame_n, rest)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        states[device] = state
+    assert states["cuda"].push_count == states["cpu"].push_count == n
+    assert states["cuda"].storage["seq"].tolist() == [10, 6, 7, 8, 9]
+    for name in ("seq", "frame_s", "frame_t" if dedup_next else "frame_n"):
+        assert torch.equal(states["cuda"].storage[name].cpu(), states["cpu"].storage[name]), name
+    for field in ("reward", "terminated", "truncated", "action_index"):
+        assert torch.equal(getattr(states["cuda"].storage["rest"], field).cpu(),
+                           getattr(states["cpu"].storage["rest"], field)), field

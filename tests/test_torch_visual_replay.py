@@ -4,6 +4,10 @@ scripted multi-episode stream with terminations, truncations and a ring wrap
 is pushed into both, and the same rows — the JAX buffer's own draws, handed to
 the port — are rebuilt by both, in both `dedup_next` modes. Frames are moved,
 masked and cast, never computed on, so batches are compared exactly.
+
+A push writes its sequence tag without copying a host scalar into the
+storage (on the card such a copy waits for the device), pinned here by the
+ATen ops a push issues; `test_torch_tracing.py` checks it on the card.
 """
 
 import jax
@@ -11,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pearl_tpu.replay_buffers.transition import TransitionBatch as JaxBatch
 from pearl_tpu.replay_buffers.visual import VisualReplayBuffer as JaxVisual
@@ -255,3 +260,49 @@ def test_init_and_push_checks():
     ).init(tex)
     assert bf.storage["frame_s"].dtype == bf.storage["frame_n"].dtype == torch.bfloat16
     assert bf.storage["rest"].reward.shape == (8 * B,) and bf.storage["rest"].state is None
+
+
+class _Ops(TorchDispatchMode):
+    """Records each ATen op with its tensor arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls.append((func, args))
+        return func(*args, **(kwargs or {}))
+
+
+def _push_args(pushes, device="cpu"):
+    """(frame_s, frame_n, rest) of each push of a `_stream`, on `device`."""
+    for p in pushes:
+        rest = _rest(p, torch)
+        rest = TransitionBatch(**{f: None if getattr(rest, f) is None else
+                                  getattr(rest, f).to(device) for f in FIELDS})
+        yield (torch.from_numpy(p["frame_s"]).to(device),
+               torch.from_numpy(p["frame_n"]).to(device), rest)
+
+
+@pytest.mark.parametrize("dedup_next", [False, True])
+def test_push_writes_its_tag_without_a_host_scalar_copy(dedup_next):
+    # 11 pushes through a ring of 5 slabs: the tags wrap twice. A 0-dim
+    # source of a copy_ is a host scalar lifted into a tensor, the write that
+    # waits for the device on the card; the tag must go in as fill_'s value.
+    tbuf = VisualReplayBuffer(capacity=CAP_PUSHES * B, stack=T, num_envs=B,
+                              dedup_next=dedup_next, frame_dtype=torch.bfloat16)
+    tstate = tbuf.init(_examples()[1])
+    seq = tstate.storage["seq"]
+    calls = []
+    for i, args in enumerate(_push_args(_stream(11))):
+        with _Ops() as ops:
+            tstate = tbuf.push_frames(tstate, *args)
+        calls += ops.calls
+        assert seq[i % CAP_PUSHES].item() == i  # this push's count, across the wrap
+    scalar_copies = [args for func, args in calls
+                     if func is torch.ops.aten.copy_.default and args[1].dim() == 0]
+    assert scalar_copies == []
+    tag_fills = [args[1] for func, args in calls if func is torch.ops.aten.fill_.Scalar]
+    assert tag_fills == list(range(11))
+    assert tstate.push_count == 11
+    assert seq.tolist() == [10, 6, 7, 8, 9]  # slot p % 5 holds the newest push p
