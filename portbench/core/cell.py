@@ -11,8 +11,10 @@ carrying the agent's and the envs' state from call to call, until
 `seconds` have passed; it ends with the fetch of the last dispatch's
 statistics. A traced run times the window with the spans installed, then
 profiles two more dispatches with device activity alone (busy and idle
-time) and two with host activity too (what each span launched). Once the
-peak memory is read and the program's state is freed, the reference's
+time) and two with host activity too (what each span launched); once the
+peak memory is read, it runs the program's own traced phase
+(`program.run_phase`: four dispatches with the port's spans and counters on).
+Once the program's state is freed, the reference's
 `judge` (`reference/<reference>.py`) runs over set-up's seeds and returns
 the numbers compared; the cell's limits decide `correct`.
 """
@@ -28,7 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from portbench.core import compare, specs
+from portbench.core import compare, program, specs
 from portbench.core.spans import LAYER_SPANS, OP_PREFIX, Spans
 
 
@@ -47,7 +49,10 @@ class Readings:
     profiled_steps: int = 0
     profiled_learns: int = 0
     op_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)  # over the profile
+    # The ops' operations over the profile, as seconds at their precision's peak.
+    op_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     tf32: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    program: Optional[object] = None  # program.Phase, the port's own spans (traced runs)
 
 
 def log(msg: str) -> None:
@@ -155,7 +160,7 @@ def run(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
     log(f"set-up {setup_s:.3f} s (the check's reads, {check_s:.3f} s, left out)")
 
     # ---------------------------------------------------------------- window
-    spans = Spans(specs.byte_counter) if trace else None
+    spans = Spans(specs.byte_counter, specs.flop_counter) if trace else None
     if spans is not None:
         spans.install()
     try:
@@ -186,6 +191,7 @@ def run(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
             readings.profiled_steps = 2 * steps_per_dispatch
             readings.profiled_learns = 2 * chunks if learn else 0
             readings.op_bytes = dict(spans.op_bytes)
+            readings.op_flops = dict(spans.op_flops)
     finally:
         if spans is not None:
             spans.remove()
@@ -193,6 +199,7 @@ def run(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
     memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     log(f"window {window_s:.3f} s, {window_calls} dispatches; peak {memory_peak} bytes")
+    readings.program = program.run_phase(dispatch) if trace and on_card else None
 
     # ------------------------------------------------------------- the check
     t_check = time.perf_counter()

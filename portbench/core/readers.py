@@ -6,9 +6,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-from portbench.core import peaks
+from portbench.core import peaks, specs
 from portbench.core.spans import OP_PREFIX
-from portbench.counts import cnn
+
+# The flag of `Readings.tf32` that lets float32 work of each kind of layer run
+# as TF32.
+TF32_FLAG = {"conv": "cudnn", "dense": "matmul"}
 
 
 def host_ms(r, span: str, per: str = "step") -> Optional[float]:
@@ -31,29 +34,34 @@ def device_ms(r, span: str, per: str = "step") -> Optional[float]:
 
 
 def roofline(r, op: str) -> Optional[float]:
-    """Percent: the least time for the op's bytes at the HBM peak over the
+    """Percent: the least time for the op's calls (the larger of its bytes at
+    the HBM peak and its operations at the peak of their precision) over the
     device time launched inside its spans, in the profiled dispatches."""
-    if r.profile is None or not r.op_bytes.get(op):
+    if r.profile is None or not (r.op_bytes.get(op) or r.op_flops.get(op)):
         return None
     device_s = r.profile.device_s(OP_PREFIX + op)
     if device_s <= 0:
         return None
-    return 100.0 * (r.op_bytes[op] / peaks.HBM_BYTES_PER_S) / device_s
+    bound_s = max(r.op_bytes.get(op, 0) / peaks.HBM_BYTES_PER_S, r.op_flops.get(op, 0.0))
+    return 100.0 * bound_s / device_s
 
 
 def mfu(r) -> Optional[float]:
     """Percent of the chip's peak over the window: each act's forward at the
     act precision, each learn's operations at the fastest precision the
-    run's flags allow for float32 work, summed as peak-seconds."""
+    run's flags allow for float32 work of their kind, summed as
+    peak-seconds. The operations are those of the configuration's count
+    module (`specs.count_module`)."""
     if r.window_s <= 0 or r.env_steps == 0:
         return None
+    counts = specs.count_module(r.config)
     act_peak = peaks.FLOPS[r.config["precision"]["act"]]
-    seconds = r.env_steps * cnn.forward_flops(r.config) / act_peak
+    seconds = r.env_steps * counts.forward_flops(r.config) / act_peak
     if r.learns:
-        learn = cnn.learn_flops(r.config)
-        conv_peak = peaks.FLOPS["tf32" if r.tf32.get("cudnn") else "float32"]
-        dense_peak = peaks.FLOPS["tf32" if r.tf32.get("matmul") else "float32"]
-        seconds += r.learns * (learn["conv"] / conv_peak + learn["dense"] / dense_peak)
+        learn = counts.learn_flops(r.config)
+        seconds += r.learns * sum(
+            flops / peaks.FLOPS["tf32" if r.tf32.get(TF32_FLAG[kind]) else "float32"]
+            for kind, flops in learn.items())
     return 100.0 * seconds / r.window_s
 
 

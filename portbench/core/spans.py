@@ -7,7 +7,9 @@ defines it keeps its own name: its wrappers count their launches through
 it). Each wrapper opens a `torch.profiler.record_function` range named after
 its span and adds its host-clock seconds to the span's total; an op's wrapper
 also adds the bytes its call needs, from the op's counter in `counts/`, when
-there is one. `remove()` puts every original back.
+there is one, and, where that counter also counts operations (`flops`), the
+seconds those operations take at the peak of the precision they run at.
+`remove()` puts every original back.
 """
 
 from __future__ import annotations
@@ -20,23 +22,30 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from portbench.core import peaks
+
 LAYER_SPANS = {"act": ("agent", "act"), "observe": ("agent", "observe"),
                "learn": ("agent", "learn"), "env": ("vector", "step")}
 OP_PREFIX = "op:"
 
 
 class Spans:
-    def __init__(self, byte_counter: Callable[[str], Optional[Callable]]):
+    def __init__(self, byte_counter: Callable[[str], Optional[Callable]],
+                 flop_counter: Callable[[str], Optional[Callable]]):
         self.byte_counter = byte_counter
+        self.flop_counter = flop_counter
         self.host: Dict[str, float] = collections.defaultdict(float)
         self.op_bytes: Dict[str, int] = collections.defaultdict(int)
+        self.op_flops: Dict[str, float] = collections.defaultdict(float)  # peak-seconds
         self._restore: List[Tuple[object, str, object]] = []
 
     def reset(self) -> None:
         self.host.clear()
         self.op_bytes.clear()
+        self.op_flops.clear()
 
-    def _wrap(self, name: str, fn: Callable, counter: Optional[Callable] = None) -> Callable:
+    def _wrap(self, name: str, fn: Callable, counter: Optional[Callable] = None,
+              flops: Optional[Callable] = None) -> Callable:
         spans = self
 
         @functools.wraps(fn)
@@ -47,6 +56,9 @@ class Spans:
             spans.host[name] += time.perf_counter() - t0
             if counter is not None:
                 spans.op_bytes[name[len(OP_PREFIX):]] += counter(args, kwargs)
+            if flops is not None:
+                n, precision = flops(args, kwargs)
+                spans.op_flops[name[len(OP_PREFIX):]] += n / peaks.FLOPS[precision]
             return out
 
         return wrapped
@@ -68,7 +80,8 @@ class Spans:
             fn = getattr(ops, op)
             if op.endswith("_reference") or not callable(fn) or not hasattr(fn, "launches"):
                 continue
-            wrapped = self._wrap(OP_PREFIX + op, fn, self.byte_counter(op))
+            wrapped = self._wrap(OP_PREFIX + op, fn, self.byte_counter(op),
+                                 self.flop_counter(op))
             for mod_name, mod in list(sys.modules.items()):
                 if (mod is None or not mod_name.startswith("pearl_tpu_torch")
                         or mod_name == fn.__module__):

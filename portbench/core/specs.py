@@ -3,9 +3,10 @@
 A cell is `workloads/<cell>.json`; it names its configuration
 (`configs/<config>.json`) and its traffic mix (`traffic/<traffic>.json`). A
 per-layer metric is `metrics/<metric>.py`, a module with `read(trace)`; a
-kernel's byte counter is `counts/<op>.py`. `BENCHMARK.json` at the root of the
-checkout says which metrics a cell reports. Nothing here names a cell, a
-configuration or a metric.
+kernel's counter is `counts/<op>.py`, and the count module that a
+configuration names under `"counts"` is `counts/<counts>.py`. `BENCHMARK.json`
+at the root of the checkout says which metrics a cell reports. Nothing here
+names a cell, a configuration or a metric.
 """
 
 from __future__ import annotations
@@ -56,13 +57,32 @@ def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     return load_module(bench_dir / "metrics" / f"{name}.py", f"portbench_metric_{name}").read
 
 
-def byte_counter(op: str, bench_dir: Path = BENCH_DIR):
-    """`nbytes(args, kwargs)` of `counts/<op>.py`, or None where the op has
-    no counter."""
+def _op_counter(op: str, attr: str, bench_dir: Path):
     path = bench_dir / "counts" / f"{op}.py"
     if not path.exists():
         return None
-    return load_module(path, f"portbench_count_{op}").nbytes
+    return getattr(load_module(path, f"portbench_count_{op}"), attr, None)
+
+
+def byte_counter(op: str, bench_dir: Path = BENCH_DIR):
+    """`nbytes(args, kwargs)` of `counts/<op>.py`, or None where the op has
+    no counter."""
+    return _op_counter(op, "nbytes", bench_dir)
+
+
+def flop_counter(op: str, bench_dir: Path = BENCH_DIR):
+    """`flops(args, kwargs)` of `counts/<op>.py`, which returns the call's
+    operations and the key in `peaks.FLOPS` of the precision they run at; None
+    where the op has no counter or its counter counts bytes only."""
+    return _op_counter(op, "flops", bench_dir)
+
+
+def count_module(config: dict):
+    """The module `counts/<counts>.py` that the configuration names under
+    `"counts"`: `forward_flops(config)`, the operations of one act row, and
+    `learn_flops(config)`, one learn's operations by kind (`conv`, `dense`)."""
+    name = config["counts"]
+    return load_module(BENCH_DIR / "counts" / f"{name}.py", f"portbench_counts_{name}")
 
 
 def benchmark(root: Path = ROOT) -> dict:

@@ -1,4 +1,6 @@
-"""Operations of a CNN Q-network's forward and backward pass, from its shapes.
+"""Operations of a CNN Q-network's forward and backward pass, from its shapes:
+the count module of the configurations that name it under `"counts"`
+(`forward_flops`, `learn_flops`; read by `core/readers.py`'s `mfu`).
 
 A multiply-add counts two operations; biases, activations and the loss are
 left out. A convolution over an (H, W) input with kernel k, stride s and

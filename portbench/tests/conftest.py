@@ -1,6 +1,8 @@
-"""Test helpers: the repository root on the path, and each cell cut to a size
-the CPU runs in seconds (4 envs, a replay of 96 pushes, batch 32, two
-chunks a dispatch: widths, frames and every other setting as the cell's)."""
+"""Test helpers: the repository root on the path, the cells of
+`BENCHMARK.json` (`CELLS`; `PIXEL_CELLS`, those judged by the pixel DQN
+reference), and a pixel cell cut to a size the CPU runs in seconds (4 envs, a
+replay of 96 pushes, batch 32, two chunks a dispatch: widths, frames and
+every other setting as the cell's)."""
 
 import sys
 from pathlib import Path
@@ -13,7 +15,9 @@ if str(ROOT) not in sys.path:
 
 from portbench.core import specs  # noqa: E402
 
-CELLS = ["dqn2013_atari84.train", "nature_dqn_atari84.train", "dqn2013_atari84.collect"]
+CELLS = [w["name"] for w in specs.benchmark()["workloads"]]
+PIXEL_CELLS = [name for name in CELLS
+               if specs.load_cell(name).config["reference"] == "dqn_pixel"]
 
 
 def tiny(cell: specs.Cell) -> specs.Cell:

@@ -16,7 +16,7 @@ from portbench.core import cell as cell_mod
 from portbench.core import compare
 from portbench.reference import dqn_pixel
 
-from conftest import CELLS
+from conftest import PIXEL_CELLS
 
 SEED = 2**31 + 11
 
@@ -26,14 +26,14 @@ def run(cell, seed=SEED):
     return cell_mod.run(cell, seed, 0.5, False, "cpu", time.perf_counter(), names)
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", PIXEL_CELLS)
 def test_port_matches_reference_at_4_envs(tiny_cell, name):
     out = run(tiny_cell(name))
     assert out["correct"], out["checks"]
     assert out["attempted"] >= 1 and out["metrics"]["env_steps_per_s"] > 0
 
 
-STAND_INS = [(name, fault) for name in CELLS for fault in dqn_pixel.FAULTS
+STAND_INS = [(name, fault) for name in PIXEL_CELLS for fault in dqn_pixel.FAULTS
              if "collect" not in name or fault in ("none", "altered_action")]
 
 
@@ -108,7 +108,7 @@ EXPECTED = {
     "wrap_range": {"wrap_loss_gap", "wrap_grad_gap"},
 }
 LEARN_FAULTS = ("unchanged_state", "half_batch", "wrap_range")
-CASES = [(name, fault) for name in CELLS for fault in sorted(FAULTS)
+CASES = [(name, fault) for name in PIXEL_CELLS for fault in sorted(FAULTS)
          if "collect" not in name or fault not in LEARN_FAULTS]
 
 

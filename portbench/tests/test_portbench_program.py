@@ -162,3 +162,19 @@ def test_device_ops_move_onto_the_host_clock():
     assert calls == 3 and clock == [(10_000, -995), (20_000, -895), (30_000, -500)]
     assert [(o.name, o.start_ns) for o in ops] == [("k1", 10_000), ("k2", 20_000),
                                                     ("copy", 30_000)]
+
+
+def test_a_cpu_run_has_no_program_phase(tiny_cell):
+    """The traced phase runs on the card alone: a traced CPU run leaves
+    `readings.program` None and reports none of its metrics."""
+    import time
+
+    from portbench.core import cell as cell_mod
+
+    name = "dqn2013_atari84.train"
+    per_layer = [m["name"] for m in specs.cell_metrics(specs.benchmark(), name, "per_layer")]
+    assert set(NEW_METRICS) <= set(per_layer)
+    out = cell_mod.run(tiny_cell(name), 2**31 + 17, 0.2, True, "cpu", time.perf_counter(),
+                       {"end_to_end": [], "per_layer": per_layer})
+    assert out["readings"].program is None
+    assert out["metrics"] and not set(out["metrics"]) & set(NEW_METRICS)
