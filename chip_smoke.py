@@ -22,14 +22,15 @@ Phases, each printing its seconds:
   5. learning: `online_learning` must reach CartPole return 500;
   6. visual runner: drives `make_compiled_runner` at the full width of the
      CNN-DQN workload (1024 envs, 84x84 frames, a window of 4, bfloat16 ring
-     and replay) and checks the exact launch counts of the ring and fence
-     kernels, the ring and replay bookkeeping and the Q values; then the
-     same composition, at the same width, on the env's default 4-channel
-     frames (a 231 MB ring), the path of `masked_scale_fence`; then the two
-     opt-in act paths of the 1-channel composition, each at full width: the
-     conv1 cache (`conv1_cache=True`, the path of `cache_write`) and the ring
-     conv (`ring_conv=True`, the path of `ring_conv1`, every launch in the
-     tensor-core body);
+     and replay) with the act's fences asked for (`ring_conv=False`) and
+     checks the exact launch counts of the ring and fence kernels, the ring
+     and replay bookkeeping and the Q values; then the same composition, at
+     the same width, on the env's default 4-channel frames (a 231 MB ring),
+     the path of `masked_scale_fence`; then the two other act paths of the
+     1-channel composition, each at full width: the conv1 cache
+     (`conv1_cache=True`, the path of `cache_write`) and the ring conv
+     (`ring_conv=True`, the path of `ring_conv1` and the network's default
+     on this ring, every launch in the tensor-core body);
   7. csac runner: drives `make_compiled_runner` at the full width of the
      continuous SAC workload (Pendulum, 131072 envs, batch 1024, a replay of
      2097152 rows, 8 steps per learn, 16 learns per call): a warm-up call
@@ -794,6 +795,10 @@ CONV_SMALL = [
     (1, 4, 84, 84, 8, 4, 16), (5, 2, 36, 36, 16, 4, 32), (9, 3, 32, 28, 8, 4, 8),
     (700, 2, 84, 84, 8, 4, 16),
 ]
+# conv1 as the benchmark's cells give it to B5 on the act path: 16384 envs, a
+# window of 4 84x84 frames (a 925 MB bfloat16 ring), 8x8 stride 4, at the 2013
+# DQN's 16 channels and Nature DQN's 32.
+CONV_CELLS = [(16_384, 4, 84, 84, 8, 4, 16), (16_384, 4, 84, 84, 8, 4, 32)]
 
 
 def check_act_kernels(card):
@@ -895,6 +900,20 @@ def check_act_kernels(card):
               f"ring at each), max abs err so far {err['ring_conv1']:.3e}", flush=True)
     assert set(bodies[torch.float32]) == {"general"}
     assert bodies[torch.bfloat16].count("mma") == 7 and bodies[torch.bfloat16][0] == "mma"
+    # At the cells' shapes, in the mma body, the main path's only one there.
+    for B, T, H, W, k, s, OC in CONV_CELLS:
+        assert rc.pick_body(torch.bfloat16, T, H, W, k, s, OC) == "mma"
+        ring, valid, wmat, bias = conv_operands(B, T, H, W, k, s, OC, torch.bfloat16)
+        got = hold(ring, valid, wmat, bias, H, W, k, s, "mma")
+        assert 0.2 < (got[1:] > 0).float().mean().item() < 0.8
+        assert torch.equal(got[0].float().amax((1, 2)), torch.relu(bias).to(torch.bfloat16).float())
+        rolled = torch.roll(wmat.view(T, k * k, OC), 1, 0).reshape(T * k * k, OC)
+        hold(ring, torch.ones_like(valid), rolled, bias, H, W, k, s, "mma")
+        del ring, valid, got
+    print(f"ring_conv1 bfloat16: within rtol {tol[torch.bfloat16]['rtol']:.3e} atol "
+          f"{tol[torch.bfloat16]['atol']:.0e} of the plain version in the mma body at the cells' "
+          f"shapes {CONV_CELLS} (a rolled wmat with every frame valid at each), max abs err so "
+          f"far {err['ring_conv1']:.3e}", flush=True)
 
     # Timing at the shapes of the main paths, operands cold in the L2 cache.
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -967,6 +986,34 @@ def check_act_kernels(card):
         bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
 
+    # At the cells' shapes, every frame valid (the main path after an
+    # episode's first steps), beside what B5 replaced there.
+    cells = timing["ring_conv1"]["cells"] = {}
+    for B, T, H, W, k, s, OC in CONV_CELLS:
+        ring, valid, wmat32, bias = conv_operands(B, T, H, W, k, s, OC, bf16)
+        valid = torch.ones_like(valid)
+        wmat = wmat32.to(bf16)
+        OH, OW = (H - k) // s + 1, (W - k) // s + 1
+        nbytes = (ring.numel() * 2 + valid.numel() + wmat.numel() * 2 + bias.numel() * 4
+                  + B * OC * OH * OW * 2)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * B * T * OH * OW * OC * k * k / BF16_FLOP_PER_S
+        w4 = (wmat32 * 255.0).to(bf16).reshape(T, k, k, OC).permute(3, 0, 1, 2).contiguous()
+        b16 = bias.to(bf16)
+        cell = cells[f"B={B} OC={OC}"] = dict(
+            ms=ms(lambda: ring_conv1(ring, valid, wmat, bias, H=H, W=W, k=k, s=s)),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            fence4_conv2d_relu_ms=ms(lambda: F.relu(F.conv2d(
+                masked_scale_fence4(ring, valid, H=H, W=W, div=255.0), w4, b16, stride=s))),
+            body=rc.pick_body(bf16, T, H, W, k, s, OC),
+        )
+        del ring
+        print(f"ring_conv1 B={B} T={T} {H}x{W} k={k} s={s} OC={OC} bfloat16 (body {cell['body']}), "
+              f"every frame valid: kernel {cell['ms']:.4f} ms, bound {cell['bound_ms']:.4f} ms "
+              f"({cell['bound_by']}), {100 * cell['bound_ms'] / cell['ms']:.1f}% of it; what it "
+              f"replaces on the act path {cell['fence4_conv2d_relu_ms']:.4f} ms on {card}",
+              flush=True)
+    B, T, OC, OH, OW = bench4
     t = timing["cache_write"]
     print(f"cache_write B={B} T={T} D={D} bfloat16: kernel {t['ms']:.4f} ms, plain version (T "
           f"copy_ calls) {t['plain_ms']:.4f} ms, library call (one index_put_) "
@@ -1006,8 +1053,9 @@ def visual_wrappers():
 
 def visual_agent(num_envs, frames, batch_size, **net_options):
     """The CNN-DQN composition of the reference's visual workload, with
-    `frames` channels per frame; `net_options` select an opt-in act path of
-    the network (`conv1_cache=True` or `ring_conv=True`)."""
+    `frames` channels per frame; `net_options` select an act path of the
+    network (`conv1_cache=True`, `ring_conv=True` or `ring_conv=False`; by
+    default the ring conv wherever it takes the 1-channel bfloat16 ring)."""
     from pearl_tpu_torch.agent import PearlAgent
     from pearl_tpu_torch.envs import SyntheticAtari
     from pearl_tpu_torch.history_summarization_modules import FrameRingHistorySummarization
@@ -1120,13 +1168,15 @@ def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
     ones. With 1 channel the conv input comes from `masked_scale_fence4`;
     with more it needs a channel interleave after the fence and comes from
     `masked_scale_fence`. `conv1_cache` and `ring_conv` select the network's
-    opt-in act paths, which leave the fences to the learn step. Returns the
+    other act paths, which leave the fences to the learn step; with neither
+    the network is asked for the fences (`ring_conv=False`), since its
+    default takes the ring conv on a 1-channel bfloat16 ring. Returns the
     launch counts of the whole run and its env-steps/s."""
     from pearl_tpu_torch.training import make_compiled_runner
     from pearl_tpu_torch.utils import make_generator
 
     num_envs, steps_per_learn, learns_per_call = VIS_B, 8, 8
-    net_options = {k: True for k, on in (("conv1_cache", conv1_cache), ("ring_conv", ring_conv)) if on}
+    net_options = {"conv1_cache": conv1_cache, "ring_conv": ring_conv}
     agent, env = visual_agent(num_envs, frames=frames, batch_size=VIS_LEARN_B, **net_options)
     init_fn, run_fn = make_compiled_runner(
         agent, env, num_envs=num_envs,
@@ -1171,7 +1221,8 @@ def run_visual_runner(card, frames, calls, conv1_cache=False, ring_conv=False):
     t0 = time.perf_counter()
     astate, env_states, stats = run_fn(astate, env_states, gen)  # warm-up
     torch.cuda.synchronize()
-    tag = f"visual runner, {frames}-channel frames" + "".join(f", {k}" for k in net_options)
+    tag = f"visual runner, {frames}-channel frames" + "".join(
+        f", {k}" for k, on in net_options.items() if on)
     print(f"{tag}, warm-up call: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     for c in range(calls):
@@ -4920,7 +4971,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cached, sps_cached = run_visual_runner(card, frames=1, calls=2, conv1_cache=True)
     fused, sps_fused = run_visual_runner(card, frames=1, calls=2, ring_conv=True)
-    # The default path once more, so that the opt-in paths stand between two
+    # The fence path once more, so that the other paths stand between two
     # runs of what they are compared with (the loop is host-bound and the
     # host's speed drifts within a run).
     _, sps_default_again = run_visual_runner(card, frames=1, calls=2)

@@ -1,8 +1,8 @@
 """Q-value networks (port of `pearl_tpu/neural_networks/q_value_networks.py`:
 `VanillaQValueNetwork`, `MultiHeadQValueNetwork`, `DuelingQValueNetwork`,
 `TwoTowerQValueNetwork`, `QuantileQValueNetwork`, `EnsembleQValueNetwork` and
-`CNNQValueNetwork` with its two opt-in act branches, the conv1 cache and the
-ring conv).
+`CNNQValueNetwork` with its two act branches, the conv1 cache (opt-in) and
+the ring conv (the card's default on bfloat16 rings)).
 
 Each network is a frozen-dataclass adapter over an `nn.Module`, with the
 reference's protocol:
@@ -290,6 +290,19 @@ class _CNNQNet(nn.Module):
         return self.MLP_0(self.conv(images))
 
 
+def act_takes_ring_conv(
+    ring_conv: Optional[bool], fits: bool, dtype: torch.dtype, device_type: str,
+) -> bool:
+    """Whether `CNNQValueNetwork`'s live acting window runs conv1 through the
+    ring conv (kernel B5): as `ring_conv` says when it is set, and under its
+    default None where conv1's geometry `fits` the kernel (the check that
+    `ring_conv=True` makes) and the ring is a bfloat16 tensor on a CUDA
+    device. Reads no tensor, so the choice costs no host sync."""
+    if ring_conv is not None:
+        return ring_conv
+    return fits and device_type == "cuda" and dtype == torch.bfloat16
+
+
 @dataclasses.dataclass(frozen=True)
 class CNNQValueNetwork:
     """Atari-style CNN multi-head Q. `state` is a flattened (H, W, C) image
@@ -305,19 +318,39 @@ class CNNQValueNetwork:
     `ops/layout_fence.py` (the reference's environment-variable gate rests on
     a TPU measurement and is not carried over).
 
-    Two opt-in branches take conv1 of the window off the ACT path; the learn
-    path's replay windows (`from_replay=True`) always keep the fences:
-    - `conv1_cache=True` (with `time_major_stack`): conv1 becomes a masked sum
-      over a cache of per-frame contributions (`ops/conv_cache.py`). Needs
-      `frame_channels == 1` and `paddings[0] == 0`, and a `PearlAgent`, which
-      owns the cache: seeded at `init`, one `cache_write` per observe, a full
-      `refresh_cache` after every learn. The cached Q agrees with the direct
-      Q up to the grouping of a float32 sum, not bit for bit.
-    - `ring_conv=True` (the reference's `PEARL_TPU_RING_CONV=1`): mask, /255,
-      conv1, bias and relu in the one hand-written kernel of
-      `ops/ring_conv.py`. A geometry that kernel does not take is a
-      ValueError at construction, never a quiet change of branch.
-    With both set the cache comes first, as in the reference."""
+    Two branches take conv1 of the window off the ACT path; the learn path's
+    replay windows (`from_replay=True`) always keep the fences:
+    - `conv1_cache=True` (with `time_major_stack`, opt-in): conv1 becomes a
+      masked sum over a cache of per-frame contributions
+      (`ops/conv_cache.py`). Needs `frame_channels == 1` and
+      `paddings[0] == 0`, and a `PearlAgent`, which owns the cache: seeded at
+      `init`, one `cache_write` per observe, a full `refresh_cache` after
+      every learn. The cached Q agrees with the direct Q up to the grouping of
+      a float32 sum, not bit for bit.
+    - the ring conv: mask, /255, conv1, bias and relu in the one hand-written
+      kernel of `ops/ring_conv.py` (B5). `ring_conv` chooses it:
+      - None (the default): wherever it applies, which is decided by
+        `act_takes_ring_conv` from the conv1 geometry (once, at
+        construction; one the kernel does not take quietly keeps the fences)
+        and the ring's dtype and device (a bfloat16 CUDA ring). A CPU or a
+        float32 ring keeps the fences, so the CPU computes what it always
+        has.
+      - True (the reference's `PEARL_TPU_RING_CONV=1`): on every ring, the
+        CPU's included (the plain version there). A geometry the kernel does
+        not take is a ValueError at construction, never a quiet change of
+        branch.
+      - False: never; the fences, `conv2d` and relu, the library's conv1.
+      True and False are for the tests and the card's smoke checks, which
+      hold the two paths against each other; no configuration needs them.
+      One geometry check serves all three values, so the default takes B5
+      exactly where True would not raise.
+      The reference keeps the ring conv opt-in until it is measured faster
+      on its chip. On an H100 it is 13.5x faster than what it replaces on
+      the act path (0.0416 against 0.5626 ms at 1024 envs, 84x84x4): cuDNN
+      has no bfloat16 tensor-core kernel for four input channels, converts
+      the window and runs conv1 in float32.
+    With both the cache and the ring conv the cache comes first, as in the
+    reference."""
 
     input_shape: Tuple[int, int, int] = (84, 84, 4)  # (H, W, C)
     out_channels: Sequence[int] = (16, 32)
@@ -328,26 +361,28 @@ class CNNQValueNetwork:
     time_major_stack: bool = False
     frame_channels: int = 1
     conv1_cache: bool = False
-    ring_conv: bool = False
+    ring_conv: Optional[bool] = None
 
     def __post_init__(self):
         self.cache_enabled  # raises on a configuration the cache does not take
-        if self.ring_conv:
+        T, H, W, k, s, _, _, OC = self._conv1_dims()
+        # Whether B5 takes conv1, checked once for every value of `ring_conv`:
+        # at float32's 4 bytes an element, which fits a ring of either dtype.
+        fits = self.time_major_stack and ring_conv_applicable(
+            T, H, W, self.frame_channels, k, s, self.paddings[0], OC)
+        object.__setattr__(self, "_ring_conv_fits", fits)
+        if self.ring_conv and not fits:
             if not self.time_major_stack:
                 raise ValueError(
                     "ring_conv=True requires time_major_stack=True (the ring axis is the "
                     "frame-stack axis)"
                 )
-            T, H, W, k, s, _, _, OC = self._conv1_dims()
-            if not ring_conv_applicable(
-                T, H, W, self.frame_channels, k, s, self.paddings[0], OC
-            ):
-                raise ValueError(
-                    f"ring_conv=True does not take this conv1 (T={T}, {H}x{W} frames of "
-                    f"{self.frame_channels} channels, k={k}, s={s}, padding "
-                    f"{self.paddings[0]}, {OC} output channels): see "
-                    "ops.ring_conv.ring_conv_applicable"
-                )
+            raise ValueError(
+                f"ring_conv=True does not take this conv1 (T={T}, {H}x{W} frames of "
+                f"{self.frame_channels} channels, k={k}, s={s}, padding "
+                f"{self.paddings[0]}, {OC} output channels): see "
+                "ops.ring_conv.ring_conv_applicable"
+            )
 
     @property
     def supports_frame_ring(self) -> bool:
@@ -473,7 +508,7 @@ class CNNQValueNetwork:
         (so the conv stack must be the plain relu one over `/ 255` inputs:
         any other raises). The live acting carry (`from_replay` false)
         takes the conv1 cache when the view carries one, else the ring conv
-        when it is asked for."""
+        where `act_takes_ring_conv` says so."""
         if not self.time_major_stack:
             raise ValueError(
                 "FrameRingView input requires time_major_stack=True (the ring "
@@ -494,7 +529,8 @@ class CNNQValueNetwork:
         # W_ring[s] = W_time[(s - cursor) % T]  <=>  roll(W_time, cursor).
         if cursor:
             k0 = torch.roll(k0, cursor * fc, dims=1)
-        if self.ring_conv and not view.from_replay:
+        if not view.from_replay and act_takes_ring_conv(
+                self.ring_conv, self._ring_conv_fits, ring.dtype, ring.device.type):
             # The /255 goes into the weights (conv(x/255, W) == conv(x, W/255)),
             # flattened in the kernel's (t, ky, kx) order.
             k = self.kernel_sizes[0]

@@ -43,7 +43,12 @@ mirrors the choice here, so that it can be tested without a card):
 `csrc/ring_conv.cu` has the designs in full.
 
 Dispatch: a CUDA ring launches the kernel (or raises), a CPU ring runs the
-plain version (`ring_conv1_reference`). Nothing falls back.
+plain version (`ring_conv1_reference`). Nothing falls back. On the card it is
+the default act conv1 for bfloat16 rings: `CNNQValueNetwork` under its
+default `ring_conv=None` calls it for every live acting window whose conv1
+it takes (`q_value_networks.act_takes_ring_conv`), and `ring_conv=False`
+keeps the fences and the library's conv1. The learn path's replay windows
+never come here.
 `ring_conv1.launches` counts kernel launches and nothing else;
 `ring_conv1.mma_launches` counts those of them that took the mma body.
 """

@@ -50,8 +50,9 @@ MESH_SCRIPTS = ("dp_scaling", "multi_chip_dqn")
 # Keyword arguments that only the port's drivers take.
 PORT_ONLY = {"device", "check_replication"}
 # Fields only the port's classes have, at the value the scripts leave them:
-# the ring conv is the reference's environment variable, a field here.
-PORT_ONLY_FIELDS = {"ring_conv": False}
+# the ring conv is the reference's environment variable, a field here, whose
+# default None takes it wherever the card's bfloat16 ring allows.
+PORT_ONLY_FIELDS = {"ring_conv": None}
 # Keyword arguments that grow with the mesh's width.
 PER_RANK = ("num_envs", "max_steps", "learning_starts")
 # What each script prints at its end.

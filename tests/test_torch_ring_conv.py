@@ -249,7 +249,7 @@ def test_pick_body_takes_the_runner_shape_to_the_tensor_core_body():
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("shape", chip_smoke.CONV_SMALL)
+@pytest.mark.parametrize("shape", chip_smoke.CONV_SMALL + chip_smoke.CONV_CELLS)
 def test_pick_body_gives_every_checked_shape_a_body_that_takes_it(shape, dtype):
     _, T, H, W, k, s, OC = shape
     body = trc.pick_body(dtype, T, H, W, k, s, OC)
