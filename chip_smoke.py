@@ -1035,6 +1035,78 @@ def check_act_kernels(card):
     return timing
 
 
+ENV_FRAMES = (16_384, 84, 84, 1)  # the pixel cells' vector step: envs, H, W, frames
+
+
+def check_env_kernel(card):
+    """`synthetic_frames` against its plain version and against the env's
+    path without it (two `SyntheticAtari._obs` grids and a `where`), bit for
+    bit, at the pixel cells' step (bfloat16, one row in 128 done, as with
+    episodes of 128) and at ragged float32 and bfloat16 shapes; times the
+    kernel, its plain version and that path beside the bytes bound."""
+    from pearl_tpu_torch.envs import SyntheticAtari, SyntheticAtariState
+    from pearl_tpu_torch.ops.synthetic_frames import (
+        synthetic_frames,
+        synthetic_frames_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # over the 50 MB L2
+
+    def operands(B, done_share):
+        phase = torch.rand((B,), device="cuda", generator=gen) * 6.28
+        t = torch.randint(0, 128, (B,), device="cuda", generator=gen, dtype=torch.int32)
+        fresh = torch.rand((B,), device="cuda", generator=gen) * 6.28
+        done = torch.rand((B,), device="cuda", generator=gen) < done_share
+        return phase, t, fresh, done
+
+    def env_path(env, phase, t, fresh, done):
+        obs = env._obs(SyntheticAtariState(phase=phase, t=t + 1))
+        reset = env._obs(SyntheticAtariState(phase=fresh, t=torch.zeros_like(t)))
+        return obs, torch.where(done[:, None], reset, obs)
+
+    for B, H, W, frames, dtype, share in [(37, 7, 5, 4, torch.float32, 0.5),
+                                          (19, 5, 3, 3, torch.bfloat16, 0.5),
+                                          (300, 84, 84, 4, torch.float32, 0.3),
+                                          (*ENV_FRAMES, torch.bfloat16, 1 / 128)]:
+        ops = operands(B, share)
+        env = SyntheticAtari(height=H, width=W, frames=frames, obs_dtype=dtype)
+        before = synthetic_frames.launches
+        got = synthetic_frames(*ops, H=H, W=W, frames=frames, dtype=dtype)
+        assert synthetic_frames.launches == before + 1
+        plain = synthetic_frames_reference(*ops, H=H, W=W, frames=frames, dtype=dtype)
+        today = env_path(env, *ops)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, plain, today):
+            assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), (
+                B, H, W, frames, dtype)
+        print(f"synthetic_frames B={B} {H}x{W}x{frames} {dtype}: bit-equal to its plain "
+              f"version and to two _obs grids + where ({int(ops[3].sum())} rows done)",
+              flush=True)
+
+    B, H, W, frames = ENV_FRAMES
+    ops = operands(B, 1 / 128)
+    env = SyntheticAtari(height=H, width=W, frames=frames, obs_dtype=torch.bfloat16)
+    kw = dict(H=H, W=W, frames=frames, dtype=torch.bfloat16)
+    nbytes = 2 * B * H * W * frames * 2 + B * 13
+
+    def ms(fn):
+        return device_ms(fn, flush=flush)
+
+    timing = dict(
+        ms=ms(lambda: synthetic_frames(*ops, **kw)),
+        plain_ms=ms(lambda: synthetic_frames_reference(*ops, **kw)),
+        obs_obs_where_ms=ms(lambda: env_path(env, *ops)),
+        bound_ms=bytes_bound_ms(nbytes), bound_by="bytes",
+    )
+    print(f"synthetic_frames B={B} {H}x{W}x{frames} bfloat16, {int(ops[3].sum())} rows done: "
+          f"kernel {timing['ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms (bytes; "
+          f"{100 * timing['bound_ms'] / timing['ms']:.1f}% of it), plain version "
+          f"{timing['plain_ms']:.4f} ms, the env's path without it (two _obs + where) "
+          f"{timing['obs_obs_where_ms']:.4f} ms on {card}", flush=True)
+    return timing
+
+
 def visual_wrappers():
     from pearl_tpu_torch.ops.layout_fence import (
         copy_fence, masked_scale_fence, masked_scale_fence4,
@@ -4901,7 +4973,7 @@ def print_kernel_resources(build_dir):
     import re
 
     wanted = ("fused_mlp_tiled_kernel", "fused_mlp_rows_kernel", "fused_mlp_general_kernel",
-              "ring_conv1_mma_kernel")
+              "ring_conv1_mma_kernel", "synthetic_frames_kernel")
     for report in sorted(build_dir.glob("*.ptxas.txt")):
         blocks = re.split(r"ptxas info\s*: Compiling entry function '", report.read_text())
         for block in blocks[1:]:
@@ -4945,7 +5017,8 @@ def main() -> int:
     t0 = time.perf_counter()
     from pearl_tpu_torch.ops import _build
 
-    sources = ["fused_mlp", "ring_write", "layout_fence", "conv_cache", "ring_conv"]
+    sources = ["fused_mlp", "ring_write", "layout_fence", "conv_cache", "ring_conv",
+               "synthetic_frames"]
     for name, path in _build.build_all(sources).items():
         print(f"built {name}: {path}", flush=True)
     print_kernel_resources(_build.BUILD_DIR)
@@ -4955,6 +5028,7 @@ def main() -> int:
     max_err, timing = check_fused_mlp(card)
     visual_timing = check_visual_kernels(card)
     visual_timing.update(check_act_kernels(card))
+    check_env_kernel(card)
     phase("kernels", t0)
 
     t0 = time.perf_counter()

@@ -10,6 +10,10 @@ The reference writes one env's step and vmaps it; here reset and step are
 written over the batch directly. The grid is summed in float32 in the
 reference's order, `phase + 0.11 h + 0.07 w + 0.5 f + 0.31 t`, and cast to
 `obs_dtype` after the sine.
+
+On the card, `VectorEnv.step` goes through `step_autoreset`, which makes a
+step's terminal and auto-reset frames in one kernel (`ops.synthetic_frames`,
+the same frames bit for bit) instead of two `_obs` grids and a `where`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 from pearl_tpu_torch.api.environment import Environment
 from pearl_tpu_torch.api.spaces import BoxSpace, DiscreteActionSpace
 from pearl_tpu_torch.api.types import ActionResult
+from pearl_tpu_torch.ops.synthetic_frames import synthetic_frames
+from pearl_tpu_torch.utils.pytree import tree_select
 
 
 @dataclasses.dataclass
@@ -75,19 +81,55 @@ class SyntheticAtari(Environment):
         )
         return state, self._obs(state)
 
-    def step(
-        self, state: SyntheticAtariState, action: torch.Tensor
-    ) -> Tuple[SyntheticAtariState, ActionResult]:
+    def _advance(self, state: SyntheticAtariState, action: torch.Tensor):
+        """The step's new state, reward, terminated and truncated."""
         a = action[:, 0].to(torch.int32)
         # The right action is a function of phase and time that the frame shows.
         target = (torch.floor(state.phase * 10.0).to(torch.int32) + state.t) % self.num_actions
         reward = torch.where(a == target, 1.0, 0.0)
         t = state.t + 1
         new_state = SyntheticAtariState(phase=state.phase, t=t)
+        return new_state, reward, torch.zeros_like(t, dtype=torch.bool), t >= self.episode_len
+
+    def step(
+        self, state: SyntheticAtariState, action: torch.Tensor
+    ) -> Tuple[SyntheticAtariState, ActionResult]:
+        new_state, reward, terminated, truncated = self._advance(state, action)
         result = ActionResult(
-            observation=self._obs(new_state),
-            reward=reward,
-            terminated=torch.zeros_like(t, dtype=torch.bool),
-            truncated=t >= self.episode_len,
+            observation=self._obs(new_state), reward=reward, terminated=terminated,
+            truncated=truncated,
         )
         return new_state, result
+
+    @staticmethod
+    def _frames_kernel_applies(device: torch.device, dtype: torch.dtype) -> bool:
+        """Whether `step_autoreset` makes the frames with the kernel: CUDA
+        tensors and a float32 or bfloat16 `obs_dtype`."""
+        return device.type == "cuda" and dtype in (torch.float32, torch.bfloat16)
+
+    def step_autoreset(
+        self, state: SyntheticAtariState, action: torch.Tensor,
+        generator: Optional[torch.Generator],
+    ) -> Optional[Tuple[SyntheticAtariState, ActionResult, torch.Tensor]]:
+        """`VectorEnv.step`'s (next_states, result, next_obs) with auto-reset,
+        both frame batches from one `synthetic_frames` kernel; the same
+        values and the same draw from `generator` as `step`, `reset` and a
+        select. None where the kernel does not apply (CPU tensors, or an
+        `obs_dtype` other than float32 and bfloat16): the caller then takes
+        that path."""
+        dtype = self.obs_dtype or torch.float32
+        device = state.phase.device
+        if not self._frames_kernel_applies(device, dtype):
+            return None
+        new_state, reward, terminated, truncated = self._advance(state, action)
+        # `reset`'s draw, at the point where the caller would reset.
+        fresh_phase = torch.rand((state.phase.shape[0],), generator=generator, device=device) * 6.28
+        fresh = SyntheticAtariState(phase=fresh_phase, t=torch.zeros_like(state.t))
+        done = terminated | truncated
+        next_state = tree_select(done, fresh, new_state)
+        obs, next_obs = synthetic_frames(
+            state.phase, state.t, fresh_phase, done,
+            H=self.height, W=self.width, frames=self.frames, dtype=dtype)
+        result = ActionResult(
+            observation=obs, reward=reward, terminated=terminated, truncated=truncated)
+        return next_state, result, next_obs

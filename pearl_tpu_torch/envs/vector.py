@@ -48,8 +48,15 @@ class VectorEnv:
     ) -> Tuple[object, ActionResult, torch.Tensor]:
         """Returns (new_states, results, next_obs) with auto-reset applied to
         new_states/next_obs but NOT to results.observation. The reset states
-        are drawn from `generator`, or taken from `fresh` = (states, obs)."""
+        are drawn from `generator`, or taken from `fresh` = (states, obs).
+        An env that defines `step_autoreset(states, actions, generator)` does
+        the drawn case itself wherever that returns a result."""
         with profiling.span("env.step"):
+            step_autoreset = getattr(self.env, "step_autoreset", None)
+            if fresh is None and step_autoreset is not None:
+                out = step_autoreset(states, actions, generator)
+                if out is not None:
+                    return out
             new_states, results = self.env.step(states, actions)
             if fresh is None:
                 fresh = self.reset(generator)

@@ -17,6 +17,7 @@ from pearl_tpu_torch.ops.ring_write import (
     ring_write_where,
     ring_write_where_reference,
 )
+from pearl_tpu_torch.ops.synthetic_frames import synthetic_frames, synthetic_frames_reference
 
 __all__ = [
     "cache_write",
@@ -38,4 +39,6 @@ __all__ = [
     "ring_write_reference",
     "ring_write_where",
     "ring_write_where_reference",
+    "synthetic_frames",
+    "synthetic_frames_reference",
 ]

@@ -71,6 +71,7 @@ SPANS = (
     "op.ring_conv1",
     "op.ring_write",
     "op.ring_write_where",
+    "op.synthetic_frames",
     # counters
     "driver.vector_steps",
     "driver.learns",
